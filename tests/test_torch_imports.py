@@ -1,0 +1,44 @@
+"""The PyTorch port imports neither JAX nor the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "vargeno_tpu_torch", "vargeno_tpu_torch.cli",
+    "vargeno_tpu_torch.config", "vargeno_tpu_torch.errors",
+    "vargeno_tpu_torch.finalize", "vargeno_tpu_torch.testing",
+    "vargeno_tpu_torch.core.kmer", "vargeno_tpu_torch.core.hashes",
+    "vargeno_tpu_torch.io.fasta", "vargeno_tpu_torch.io.fastq",
+    "vargeno_tpu_torch.io.vcf", "vargeno_tpu_torch.io.vcf_writer",
+    "vargeno_tpu_torch.index.bloom", "vargeno_tpu_torch.index.build",
+    "vargeno_tpu_torch.index.dictgen", "vargeno_tpu_torch.index.store",
+    "vargeno_tpu_torch.model.calling", "vargeno_tpu_torch.native",
+    "vargeno_tpu_torch.engine.scan_ops",
+    "vargeno_tpu_torch.engine.hashtable",
+    "vargeno_tpu_torch.engine.device_index",
+    "vargeno_tpu_torch.engine.backend", "vargeno_tpu_torch.engine.batch",
+    "vargeno_tpu_torch.engine.geno", "vargeno_tpu_torch.kernels.vote",
+]
+
+
+@pytest.mark.parametrize("module", ["all", "chip_smoke"])
+def test_port_imports_no_jax(module):
+    if module == "all":
+        imports = "; ".join(f"import {m}" for m in MODULES)
+    else:
+        imports = "import chip_smoke"
+    code = (f"import sys; {imports}; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'vargeno_tpu.')) "
+            "or m == 'vargeno_tpu'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

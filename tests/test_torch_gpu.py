@@ -1,6 +1,7 @@
-"""Port tests that need the card: the vote kernel against its plain version,
-and the whole batch step on CUDA against the same step on the CPU. They
-import no JAX, so they run on a machine without it:
+"""Port tests that need the card: each kernel against its plain version, the
+batch steps on CUDA against the same steps on the CPU, and the runner's
+modes on CUDA against the CPU runner. They import no JAX, so they run on a
+machine without it:
 
     python -m pytest tests/test_torch_gpu.py -q
 
@@ -11,21 +12,23 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_index_share import FIX
+from torch_index_share import small_index as build_small_index
 
 from vargeno_tpu_torch.config import GenoConfig
 from vargeno_tpu_torch.core.kmer import np_encode_batch
 from vargeno_tpu_torch.engine import device_index as tdi
 from vargeno_tpu_torch.engine.batch import make_batch_processor
+from vargeno_tpu_torch.engine.cohort import CohortRunner
 from vargeno_tpu_torch.engine.geno import GenoRunner
-from vargeno_tpu_torch.index import bloom, dictgen, store
-from vargeno_tpu_torch.io import fasta as fasta_io
 from vargeno_tpu_torch.io.fastq import iter_read_batches
+from vargeno_tpu_torch.kernels.gather import (gather_rows_sum,
+                                              gather_rows_sum_plain)
 from vargeno_tpu_torch.kernels.vote import vote_scan, vote_scan_plain
+from vargeno_tpu_torch.tools.bench_gather import bench
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
-
-FIX = os.path.join(os.path.dirname(__file__), "fixtures", "mini")
 
 
 @pytest.fixture
@@ -67,19 +70,63 @@ def test_vote_kernel_matches_plain(cuda, E, B, C):
         assert int(got[2]) > 0
 
 
+@pytest.mark.parametrize("N,R,W,same", [
+    (65536, 1 << 18, 32, False), (1 << 20, 1 << 18, 32, False),
+    (1 << 17, 1 << 16, 128, False), (5000, 4096, 96, False),
+    (100000, 1 << 18, 32, True), (1, 4096, 32, False),
+    (33, 7, 256, False)])
+def test_gather_kernel_matches_plain(cuda, N, R, W, same):
+    rng = np.random.default_rng(N + W)
+    table = torch.from_numpy(rng.integers(
+        0, 2**32, (R, W), dtype=np.uint32).view(np.int32)).to(cuda)
+    idx = rng.integers(0, R, N, dtype=np.int64)
+    if same:
+        idx[:] = idx[0]
+    for dtype in (torch.int32, torch.int64):
+        ix = torch.from_numpy(idx).to(cuda).to(dtype)
+        before = gather_rows_sum.launches
+        got = gather_rows_sum(table, ix)
+        torch.cuda.synchronize()
+        assert gather_rows_sum.launches == before + 1
+        assert got.dtype == torch.int32 and got.shape == ()
+        assert int(got) == int(gather_rows_sum_plain(table, ix))
+        assert int(got) == int(gather_rows_sum_plain(table.cpu(), ix.cpu()))
+
+
+def test_gather_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    table = torch.zeros((64, 32), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = gather_rows_sum.launches
+    with pytest.raises(TypeError):
+        gather_rows_sum(table.long(), idx)
+    with pytest.raises(TypeError):
+        gather_rows_sum(table, idx.to(torch.int16))
+    with pytest.raises(TypeError):
+        gather_rows_sum(table, idx.reshape(2, 4))
+    with pytest.raises(ValueError):
+        gather_rows_sum(table[:, :24].contiguous(), idx)
+    with pytest.raises(ValueError):
+        gather_rows_sum(table, idx.cpu())
+    with pytest.raises(ValueError):
+        gather_rows_sum(table.t().contiguous().t(), idx)
+    assert gather_rows_sum.launches == before
+    empty = gather_rows_sum(table, idx[:0])
+    assert int(empty) == 0 and gather_rows_sum.launches == before
+
+
+def test_bench_runs_small_on_cuda(cuda):
+    before = gather_rows_sum.launches
+    out = bench(cuda, table_mb=8, shrink=16, reps=2, verbose=False)
+    assert out["device"] == torch.cuda.get_device_name(cuda)
+    assert gather_rows_sum.launches > before
+    assert out["kernel_row_gather_512B"] is None \
+        or out["kernel_row_gather_512B"] > 0
+
+
 @pytest.fixture(scope="module")
 def small_index():
     """The mini fixture's index at a small Bloom geometry."""
-    seqs = fasta_io.parse_fasta(os.path.join(FIX, "genome.fa"))
-    vcf = os.path.join(FIX, "snps.vcf")
-    ref_bf, _ = bloom.build_ref_bfs(seqs, 1 << 24, 64)
-    snp_dict, locs = dictgen.build_snp_dict_from_vcf(seqs, vcf)
-    ref_dict, _ = dictgen.build_ref_dict(seqs)
-    return store.VarGenoIndex(
-        ref=ref_dict, snp=snp_dict, ref_bf=ref_bf,
-        snp_bf=bloom.build_snp_bf(seqs, vcf, 1 << 20),
-        chrlens=[(s.name, s.size) for s in seqs],
-        sites=store.derive_sites(snp_dict), snp_locations=locs)
+    return build_small_index()
 
 
 def test_step_on_cuda_matches_cpu(cuda, small_index):
@@ -134,3 +181,77 @@ def test_runner_on_cuda_with_wide_candidate_tables(cuda, small_index):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
         assert run.n_retry_reads == ref.n_retry_reads
+
+
+def test_dual_step_on_cuda_matches_cpu(cuda, small_index):
+    """The dual-orientation step on the card equals the CPU step."""
+    fields, statics = tdi.host_fields(small_index, 0.24)
+    B, L, K = 1024, 128, 4
+    cfg = GenoConfig(batch_reads=B, max_read_len=L, max_kmers_per_read=K)
+    outs = []
+    for dev in ("cpu", cuda):
+        proc = make_batch_processor(tdi.from_numpy(fields, statics, dev), cfg)
+        n = proc.dix.n_sites + 1
+        rc = ac = torch.zeros(n, dtype=torch.int32, device=dev)
+        res = []
+        for i, b in enumerate(iter_read_batches(
+                os.path.join(FIX, "reads.fq"), B, L, K)):
+            hi, lo, kv, rok = np_encode_batch(b.codes, b.n_kmers, K)
+            args = [torch.from_numpy(a).to(dev) for a in
+                    (hi.astype(np.int64), lo.astype(np.int64), kv, rok,
+                     b.n_kmers, b.qual)]
+            rc, ac, st = proc.dual_enc(*args, rc, ac)
+            res.append({k: int(v) for k, v in st.items()})
+            if i == 1:
+                break
+        outs.append((rc.cpu(), ac.cpu(), res))
+    (c_rc, c_ac, c_res), (g_rc, g_ac, g_res) = outs
+    assert torch.equal(c_rc, g_rc) and torch.equal(c_ac, g_ac)
+    assert c_res == g_res
+    assert int(g_rc.sum()) > 0
+
+
+def test_runner_modes_on_cuda_match_cpu(cuda, small_index, tmp_path):
+    """Non-queued, auto-tuned, checkpoint-resumed and cohort runs on the
+    card count exactly as the queued CPU runner at defaults."""
+    base = dict(batch_reads=512, max_read_len=128, max_kmers_per_read=4)
+    fq = os.path.join(FIX, "reads.fq")
+    ref = GenoRunner(small_index, GenoConfig(**base), device="cpu")
+    ref.consume_fastq(fq)
+    want = ref.host_counts()
+    dix = tdi.build_device_index(small_index, cuda, 0.24)
+
+    def check(run):
+        got = run.host_counts()
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+    before = vote_scan.launches
+    dual = GenoRunner(small_index, GenoConfig(**base), device=cuda, dix=dix,
+                      queued_orientation=False)
+    dual.consume_fastq(fq)
+    check(dual)
+    tuned = GenoRunner(small_index, GenoConfig(**base, auto_tune=True,
+                                               tune_batches=3),
+                       device=cuda, dix=dix)
+    tuned.consume_fastq(fq)
+    check(tuned)
+    assert tuned._cfg_run.events_per_read < 96
+    ck = str(tmp_path / "ck")
+    first = GenoRunner(small_index, GenoConfig(**base), device=cuda, dix=dix)
+    first.consume_fastq(fq, limit_batches=8, checkpoint_path=ck,
+                        checkpoint_every=4)
+    second = GenoRunner(small_index, GenoConfig(**base), device=cuda,
+                        dix=dix)
+    second.consume_fastq(fq, checkpoint_path=ck)
+    assert 0 < first.n_reads < second.n_reads == ref.n_reads
+    check(second)
+    cohort = CohortRunner(small_index, ["a", "b"], GenoConfig(**base),
+                          device=cuda)
+    cohort.consume_sample("a", fq)
+    cohort.consume_sample("b", fq, limit_batches=2)
+    a_rc, a_ac = (t.cpu().numpy() for t in cohort.counts["a"])
+    np.testing.assert_array_equal(a_rc, want[0])
+    np.testing.assert_array_equal(a_ac, want[1])
+    assert int(cohort.counts["b"][0].sum()) < int(a_rc.sum())
+    assert vote_scan.launches > before

@@ -23,13 +23,24 @@ MODULES = [
     "vargeno_tpu_torch.engine.device_index",
     "vargeno_tpu_torch.engine.backend", "vargeno_tpu_torch.engine.batch",
     "vargeno_tpu_torch.engine.geno", "vargeno_tpu_torch.kernels.vote",
+    "vargeno_tpu_torch.kernels._build", "vargeno_tpu_torch.kernels.gather",
+    "vargeno_tpu_torch.tools", "vargeno_tpu_torch.tools.bench_gather",
+    "vargeno_tpu_torch.utils", "vargeno_tpu_torch.utils.roofline",
+    "vargeno_tpu_torch.utils.profiling",
+    "vargeno_tpu_torch.engine.autotune",
+    "vargeno_tpu_torch.engine.checkpoint",
+    "vargeno_tpu_torch.engine.cohort", "vargeno_tpu_torch.index.filt",
+    "vargeno_tpu_torch.index.ucsc",
 ]
 
 
-@pytest.mark.parametrize("module", ["all", "chip_smoke"])
+@pytest.mark.parametrize("module", ["all", "chip_smoke", "gpu_tests"])
 def test_port_imports_no_jax(module):
     if module == "all":
         imports = "; ".join(f"import {m}" for m in MODULES)
+    elif module == "gpu_tests":   # the card's machine runs them without jax
+        imports = ("import sys; sys.path.insert(0, 'tests'); "
+                   "import torch_index_share")
     else:
         imports = "import chip_smoke"
     code = (f"import sys; {imports}; "

@@ -11,12 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_index_share import FIX, small_index
 
 from vargeno_tpu.config import GenoConfig as JConfig
 from vargeno_tpu.engine.batch import make_batch_processor as j_make
 from vargeno_tpu.engine.device_index import build_device_index as j_build
-from vargeno_tpu.index import bloom, dictgen, store
-from vargeno_tpu.io import fasta as fasta_io
 from vargeno_tpu_torch.config import GenoConfig
 from vargeno_tpu_torch.core.kmer import np_encode_batch
 from vargeno_tpu_torch.engine import device_index as tdi
@@ -25,7 +24,6 @@ from vargeno_tpu_torch.io.fastq import iter_read_batches
 
 torch.set_num_threads(2)
 
-FIX = os.path.join(os.path.dirname(__file__), "fixtures", "mini")
 B, L, K = 512, 128, 4
 N_BATCHES = 3
 
@@ -50,22 +48,9 @@ TRIPS = {
 }
 
 
-def _small_index():
-    seqs = fasta_io.parse_fasta(os.path.join(FIX, "genome.fa"))
-    vcf = os.path.join(FIX, "snps.vcf")
-    ref_bf, _ = bloom.build_ref_bfs(seqs, 1 << 24, 64)
-    snp_dict, locs = dictgen.build_snp_dict_from_vcf(seqs, vcf)
-    ref_dict, _ = dictgen.build_ref_dict(seqs)
-    return store.VarGenoIndex(
-        ref=ref_dict, snp=snp_dict, ref_bf=ref_bf,
-        snp_bf=bloom.build_snp_bf(seqs, vcf, 1 << 20),
-        chrlens=[(s.name, s.size) for s in seqs],
-        sites=store.derive_sites(snp_dict), snp_locations=locs)
-
-
 @pytest.fixture(scope="module")
 def indexes():
-    index = _small_index()
+    index = small_index()
     load = JConfig().ht_target_load
     jdix = j_build(index, ht_target_load=load)
     host = j_build(index, host_only=True, ht_target_load=load)

@@ -1,12 +1,19 @@
-"""Command line of the PyTorch port (the ``index`` and ``geno`` subcommands
-of ``vargeno_tpu/cli.py``):
+"""Command line of the PyTorch port (the single-device subcommands of
+``vargeno_tpu/cli.py``):
 
-  python -m vargeno_tpu_torch.cli index <ref.fa> <snps.vcf> <prefix>
-  python -m vargeno_tpu_torch.cli geno  <prefix> <reads.fq> <snps.vcf> <out.vcf>
-      [--device cuda|cpu] [--batch-reads N] [capacity flags]
+  python -m vargeno_tpu_torch.cli index  <ref.fa> <snps.vcf> <prefix>
+  python -m vargeno_tpu_torch.cli geno   <prefix> <reads.fq> <snps.vcf> <out.vcf>
+      [--device cuda|cpu] [--batch-reads N] [--checkpoint PATH]
+      [--limit-batches N] [--metrics PATH] [--no-auto-tune] [--inline-dual]
+      [capacity flags]
+  python -m vargeno_tpu_torch.cli cohort <prefix> <snps.vcf> <out_{sample}.vcf>
+      name=reads.fq [name=reads.fq ...] [--device cuda|cpu]
+  python -m vargeno_tpu_torch.cli filt   <prefix> <out_prefix>
+  python -m vargeno_tpu_torch.cli vcfd | vcfbf | ucscd | ucscbf | encodebf | help
 
-``geno`` runs on the GPU by default and stops with an error when there is
-none; the host runs it only with ``--device cpu``.
+``geno`` and ``cohort`` run on the GPU by default and stop with an error
+when there is none; the host runs them only with ``--device cpu``. The
+index-side subcommands are host code.
 """
 
 from __future__ import annotations
@@ -17,49 +24,7 @@ import sys
 from .errors import InputError
 
 
-def _config(args):
-    from .config import GenoConfig
-
-    L = args.max_read_len
-    if L is None:   # auto-size so long reads are never truncated
-        from .io.fastq import autosize_shapes
-
-        L, K = autosize_shapes(args.reads_fq)
-    else:
-        K = max(1, L // 32)
-    kw = dict(batch_reads=args.batch_reads, max_read_len=L,
-              max_kmers_per_read=K)
-    for f in ("events_per_read", "candidates_per_read", "neighbor_item_frac",
-              "probe_hit_cap", "agree_cap", "scan_slot_cap",
-              "auto_retry_max"):
-        v = getattr(args, f)
-        if v is not None:
-            kw[f] = v
-    return GenoConfig(**kw)
-
-
-def main(argv=None):
-    try:
-        return _main(argv)
-    except InputError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-
-
-def _main(argv=None):
-    ap = argparse.ArgumentParser(prog="vargeno-tpu-torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-
-    p = sub.add_parser("index", help="build dictionaries + Bloom filters")
-    p.add_argument("ref_fasta")
-    p.add_argument("snp_vcf")
-    p.add_argument("prefix")
-
-    p = sub.add_parser("geno", help="genotype reads")
-    p.add_argument("prefix")
-    p.add_argument("reads_fq")
-    p.add_argument("snp_vcf")
-    p.add_argument("out_vcf")
+def _add_engine_flags(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the batch step (default cuda; "
                         "cpu must be asked for)")
@@ -78,8 +43,156 @@ def _main(argv=None):
     g.add_argument("--scan-slot-cap", type=int, default=None)
     g.add_argument("--auto-retry-max", type=int, default=None,
                    help="max per-batch cap-doubling rounds (0 disables)")
+    g.add_argument("--no-auto-tune", action="store_true",
+                   help="disable runtime capacity auto-tuning (by default "
+                        "lane capacities shrink to measured maxima after a "
+                        "few batches)")
 
+
+def _config(args, fastqs):
+    from .config import GenoConfig
+
+    L = args.max_read_len
+    if L is None:   # auto-size so long reads are never truncated
+        from .io.fastq import autosize_shapes
+
+        shapes = [autosize_shapes(fq) for fq in fastqs]
+        L = max(s[0] for s in shapes)
+        K = max(s[1] for s in shapes)
+    else:
+        K = max(1, L // 32)
+    kw = dict(batch_reads=args.batch_reads, max_read_len=L,
+              max_kmers_per_read=K, auto_tune=not args.no_auto_tune)
+    for f in ("events_per_read", "candidates_per_read", "neighbor_item_frac",
+              "probe_hit_cap", "agree_cap", "scan_slot_cap",
+              "auto_retry_max"):
+        v = getattr(args, f)
+        if v is not None:
+            kw[f] = v
+    return GenoConfig(**kw)
+
+
+def main(argv=None):
+    try:
+        return _main(argv)
+    except InputError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+def _parser():
+    ap = argparse.ArgumentParser(prog="vargeno-tpu-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("index", help="build dictionaries + Bloom filters")
+    p.add_argument("ref_fasta")
+    p.add_argument("snp_vcf")
+    p.add_argument("prefix")
+
+    p = sub.add_parser("geno", help="genotype reads")
+    p.add_argument("prefix")
+    p.add_argument("reads_fq")
+    p.add_argument("snp_vcf")
+    p.add_argument("out_vcf")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint path for resumable runs")
+    p.add_argument("--limit-batches", type=int, default=None,
+                   help="stop after N host-loop batches (checkpoint "
+                        "testing / partial runs)")
+    p.add_argument("--metrics", default=None,
+                   help="append jsonl throughput metrics to this path")
+    p.add_argument("--inline-dual", action="store_true",
+                   help="forward+reverse of every batch in one step (2x "
+                        "device work) instead of the default queued retry "
+                        "of failed reads; results are bit-identical")
+    _add_engine_flags(p)
+
+    p = sub.add_parser("cohort", help="genotype multiple samples")
+    p.add_argument("prefix")
+    p.add_argument("snp_vcf")
+    p.add_argument("out_pattern",
+                   help="per-sample output, e.g. out_{sample}.vcf")
+    p.add_argument("samples", nargs="+", help="name=reads.fq pairs")
+    _add_engine_flags(p)
+
+    sub.add_parser("help", help="show this help (reference: qv.cc:1853)")
+
+    p = sub.add_parser("vcfd", help="build dictionaries only (legacy vcfd)")
+    p.add_argument("ref_fasta")
+    p.add_argument("snp_vcf")
+    p.add_argument("ref_dict")
+    p.add_argument("snp_dict")
+
+    p = sub.add_parser("vcfbf", help="build Bloom filters only (gbf vcf)")
+    p.add_argument("ref_fasta")
+    p.add_argument("snp_vcf")
+    p.add_argument("ref_bf")
+    p.add_argument("snp_bf")
+
+    p = sub.add_parser("ucscd", help="build dicts from UCSC SNP txt")
+    p.add_argument("ref_fasta")
+    p.add_argument("snp_txt")
+    p.add_argument("ref_dict")
+    p.add_argument("snp_dict")
+
+    p = sub.add_parser("ucscbf", help="build Bloom filters from UCSC txt")
+    p.add_argument("ref_fasta")
+    p.add_argument("snp_txt")
+    p.add_argument("ref_bf")
+    p.add_argument("snp_bf")
+
+    p = sub.add_parser("encodebf",
+                       help="SNP Bloom filter from raw values; without "
+                       "--ref-fasta this is `gbf snp`, with it `gbf encode`"
+                       " (both reference:src/gbf.cc:31-66)")
+    p.add_argument("encode_file")
+    p.add_argument("snp_bf")
+    p.add_argument("--ref-fasta", default=None,
+                   help="also build the genome Bloom filter (gbf encode)")
+    p.add_argument("--ref-bf", default=None,
+                   help="output path for the genome BF (with --ref-fasta)")
+
+    p = sub.add_parser("filt", help="shrink ref dict to SNP-proximal k-mers")
+    p.add_argument("prefix")
+    p.add_argument("out_prefix")
+    return ap
+
+
+def _write_dicts(args, snp_dict) -> None:
+    """vcfd / ucscd: the chrlens file, the ref dict and the given snp dict
+    in the reference's binary formats."""
+    from .index import dictgen, store
+    from .io import fasta as fasta_io
+
+    seqs = fasta_io.parse_fasta(args.ref_fasta)
+    with open(args.ref_fasta + ".chrlens", "w") as f:
+        f.write(fasta_io.chrlens_text(seqs))
+    ref_dict, _ = dictgen.build_ref_dict(seqs)
+    store.write_snp_dict(args.snp_dict, snp_dict(seqs))
+    store.write_ref_dict(args.ref_dict, ref_dict)
+
+
+def _write_bfs(args, snp_bf) -> None:
+    """vcfbf / ucscbf: the genome Bloom filters and the given snp one."""
+    from .config import DEFAULT_CONFIG as cfg
+    from .index import bloom, store
+    from .io import fasta as fasta_io
+
+    seqs = fasta_io.parse_fasta(args.ref_fasta)
+    ref_bf, lite = bloom.build_ref_bfs(seqs, cfg.ref_bf_bits,
+                                       cfg.ref_lite_bf_bits)
+    store.write_sdsl_bf(args.ref_bf, ref_bf)
+    store.write_sdsl_bf(args.ref_bf + ".lite.bf", lite)
+    store.write_sdsl_bf(args.snp_bf, snp_bf(seqs, cfg.snp_bf_bits))
+
+
+def _main(argv=None):
+    ap = _parser()
     args = ap.parse_args(argv)
+
+    if args.cmd == "help":
+        ap.print_help()
+        return 0
 
     if args.cmd == "index":
         from .index.build import build_index
@@ -87,22 +200,105 @@ def _main(argv=None):
         build_index(args.ref_fasta, args.snp_vcf, args.prefix)
         return 0
 
-    import torch
+    if args.cmd in ("geno", "cohort"):
+        import torch
 
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        print("error: no CUDA device is available (pass --device cpu to "
-              "run on the host)", file=sys.stderr)
-        return 1
-    from .engine.geno import GenoRunner
-    from .index import store
+        if torch.device(args.device).type == "cuda" \
+                and not torch.cuda.is_available():
+            print("error: no CUDA device is available (pass --device cpu "
+                  "to run on the host)", file=sys.stderr)
+            return 1
+        from .index import store
 
-    cfg = _config(args)
-    index = store.load(args.prefix)
-    runner = GenoRunner(index, cfg, device=args.device)
-    runner.consume_fastq(args.reads_fq)
-    runner.write_vcf(args.snp_vcf, args.out_vcf)
-    return 0
+    if args.cmd == "geno":
+        from .engine.geno import GenoRunner
+
+        cfg = _config(args, [args.reads_fq])
+        index = store.load(args.prefix)
+        runner = GenoRunner(index, cfg, device=args.device,
+                            queued_orientation=not args.inline_dual,
+                            metrics_path=args.metrics)
+        runner.consume_fastq(args.reads_fq,
+                             checkpoint_path=args.checkpoint,
+                             limit_batches=args.limit_batches)
+        if args.metrics:
+            runner.meter.emit()
+        runner.write_vcf(args.snp_vcf, args.out_vcf)
+        return 0
+
+    if args.cmd == "cohort":
+        from .engine.cohort import CohortRunner
+
+        pairs = [s.split("=", 1) for s in args.samples]
+        bad = [s for s, p in zip(args.samples, pairs) if len(p) != 2]
+        if bad:
+            print(f"error: cohort samples must be name=reads.fq, got {bad}",
+                  file=sys.stderr)
+            return 1
+        index = store.load(args.prefix)
+        runner = CohortRunner(index, [n for n, _ in pairs],
+                              _config(args, [f for _, f in pairs]),
+                              device=args.device)
+        for name, fq in pairs:
+            runner.consume_sample(name, fq)
+        runner.write_vcfs(args.snp_vcf, args.out_pattern)
+        return 0
+
+    if args.cmd == "vcfd":
+        from .index import dictgen
+
+        _write_dicts(args, lambda seqs: dictgen.build_snp_dict_from_vcf(
+            seqs, args.snp_vcf)[0])
+        return 0
+
+    if args.cmd == "ucscd":
+        from .index import ucsc
+
+        _write_dicts(args, lambda seqs: ucsc.build_snp_dict_ucsc(
+            seqs, args.snp_txt)[0])
+        return 0
+
+    if args.cmd == "vcfbf":
+        from .index import bloom
+
+        _write_bfs(args, lambda seqs, bits: bloom.build_snp_bf(
+            seqs, args.snp_vcf, bits))
+        return 0
+
+    if args.cmd == "ucscbf":
+        from .index import ucsc
+
+        _write_bfs(args, lambda seqs, bits: ucsc.build_snp_bf_ucsc(
+            seqs, args.snp_txt, bits))
+        return 0
+
+    if args.cmd == "encodebf":
+        from .config import DEFAULT_CONFIG as cfg
+        from .index import store, ucsc
+
+        if args.ref_fasta:  # gbf encode: genome BF + encode snp BF
+            from .index import bloom
+            from .io import fasta as fasta_io
+
+            if not args.ref_bf:
+                print("encodebf: --ref-bf is required with --ref-fasta",
+                      file=sys.stderr)
+                return 1
+            seqs = fasta_io.parse_fasta(args.ref_fasta)
+            ref_bf, _ = bloom.build_ref_bfs(seqs, cfg.ref_bf_bits,
+                                            cfg.ref_lite_bf_bits)
+            store.write_sdsl_bf(args.ref_bf, ref_bf)
+        bf = ucsc.build_snp_bf_encode(args.encode_file, cfg.snp_bf_bits)
+        store.write_sdsl_bf(args.snp_bf, bf)
+        return 0
+
+    if args.cmd == "filt":
+        from .index import filt
+
+        filt.filt_prefix(args.prefix, args.out_prefix)
+        return 0
+
+    return 1
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Jax-free copy of ``vargeno_tpu/config.py``, holding only the fields the
-port reads (the JAX package's tuning, Pallas, dispatch-pipeline and
-sharding knobs come back with the features that read them).
+port reads (the JAX package's Pallas, dispatch-pipeline and sharding knobs
+come back with the features that read them).
 
 Runtime configuration of index build and genotyping.
 
@@ -102,6 +102,15 @@ class GenoConfig:
                                    # the direct bucket lookup runs on the
                                    # compacted lanes); overflow counted +
                                    # auto-escalated
+    auto_tune: bool = False        # shrink lane capacities to measured
+                                   # per-batch maxima x tune_headroom after
+                                   # tune_batches batches (engine.autotune;
+                                   # the CLI enables this by default).
+                                   # Results can never change: overflow
+                                   # escalation re-runs any batch whose
+                                   # tuned cap trips
+    tune_batches: int = 4          # batches observed before tuning
+    tune_headroom: float = 2.0     # capacity = measured max x this
     auto_retry_max: int = 3        # overflow escalation rounds per batch:
                                    # a batch that trips any capacity counter
                                    # is re-run with the tripped caps doubled

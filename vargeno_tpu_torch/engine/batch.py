@@ -1,6 +1,6 @@
-"""The batched genotyping step, single-orientation (port of
-``vargeno_tpu/engine/batch.py`` orientation_pass, pileup_accumulate and
-step_single_enc).
+"""The batched genotyping step (port of ``vargeno_tpu/engine/batch.py``
+orientation_pass, pileup_accumulate, step_single_enc and the dual-orientation
+step / step_enc).
 
 The reference's per-read sequential loop (src/qv.cc:760-1558) becomes a
 fixed-shape data-parallel pipeline over B reads x K k-mers:
@@ -32,6 +32,7 @@ import torch
 
 from ..config import GenoConfig, NO_MODIFICATION, POS_AMBIGUOUS
 from ..core.hashes import M32, hash32, popcount, snp_bf_bit, widen
+from ..core.kmer import encode_batch, rc_enc
 from ..kernels.vote import vote_scan
 from .backend import LocalBackend
 from .device_index import TorchDeviceIndex
@@ -78,9 +79,10 @@ def _pack_meta(is_ref, diff, flag, info):
 
 
 class BatchProcessor:
-    """The per-batch step for one config. ``single_enc`` takes pre-encoded
-    (hi, lo) k-mer words; ``vote`` is the vote implementation (the kernel
-    wrapper by default)."""
+    """The per-batch step for one config. ``single_enc`` runs one
+    orientation and ``dual_enc`` both, from pre-encoded (hi, lo) k-mer
+    words; ``dual`` encodes base codes on the device first. ``vote`` is the
+    vote implementation (the kernel wrapper by default)."""
 
     def __init__(self, dix: TorchDeviceIndex, config: GenoConfig,
                  vote=vote_scan):
@@ -571,11 +573,54 @@ class BatchProcessor:
         # reads this orientation failed that are retry-eligible
         stats["retry_n"] = (~res["process"] & res["read_ok"]
                             & kvalid[:, 0]).sum()
-        stats["act_overflow"] = be.act_overflow
-        stats["act_lanes_max"] = be.act_lanes
-        stats["ref_scan_lanes_max"] = be.ref_scan_lanes
-        stats["snp_scan_lanes_max"] = be.snp_scan_lanes
+        _backend_stats(be, stats)
         return ref_cnt, alt_cnt, res["process"], res["read_ok"], stats
+
+    # ------------------------------------------------------------------
+    def dual_enc(self, hi, lo, kvalid, read_ok, n_kmers, qual, ref_cnt,
+                 alt_cnt):
+        """Both orientations in one step, from pre-encoded k-mer words: the
+        forward pass, the reverse-complement pass derived from the packed
+        words (``core.kmer.rc_enc``), and a pileup for each -- forward for
+        the reads it processed, reverse for the reads only the reverse pass
+        processed (qv.cc:1504-1510). n_kmers (B,) is each read's k-mer
+        count. Returns (ref_cnt, alt_cnt, stats); per-pass stats carry a
+        ``fwd_`` / ``rev_`` prefix."""
+        be = self._backend()
+        fwd = self.orientation_pass(be, hi, lo, kvalid, read_ok, qual)
+        rev = self.orientation_pass(
+            be, *rc_enc(hi, lo, kvalid, read_ok, n_kmers, self.shapes.K),
+            qual)
+        use_fwd = fwd["process"]
+        use_rev = ~fwd["process"] & fwd["read_ok"] & rev["process"]
+        ref_cnt, alt_cnt, aovf1, sovf1, an1 = self.pileup_accumulate(
+            fwd["buf"], use_fwd, fwd["target"], ref_cnt, alt_cnt)
+        ref_cnt, alt_cnt, aovf2, sovf2, an2 = self.pileup_accumulate(
+            rev["buf"], use_rev, rev["target"], ref_cnt, alt_cnt)
+        stats = {"fwd_" + k: v for k, v in fwd["stats"].items()}
+        stats.update({"rev_" + k: v for k, v in rev["stats"].items()})
+        stats["agree_overflow"] = aovf1 + aovf2
+        stats["site_slot_overflow"] = sovf1 + sovf2
+        stats["agree_lanes_max"] = torch.maximum(an1, an2)
+        stats["n_processed"] = (use_fwd | use_rev).sum()
+        _backend_stats(be, stats)
+        return ref_cnt, alt_cnt, stats
+
+    def dual(self, codes, n_kmers, qual, ref_cnt, alt_cnt):
+        """``dual_enc`` from (B, L) uint8 base codes, encoded on the
+        device."""
+        enc = encode_batch(codes, n_kmers, self.shapes.K)
+        return self.dual_enc(*enc, n_kmers, qual, ref_cnt, alt_cnt)
+
+
+def _backend_stats(be: LocalBackend, stats: dict) -> None:
+    """The backend's capacity counter and its real compacted-lane counts
+    (summed / maximized over the step's passes), as the ``act_overflow``
+    and ``*_lanes_max`` stats that escalation and auto-tuning read."""
+    stats["act_overflow"] = be.act_overflow
+    stats["act_lanes_max"] = be.act_lanes
+    stats["ref_scan_lanes_max"] = be.ref_scan_lanes
+    stats["snp_scan_lanes_max"] = be.snp_scan_lanes
 
 
 def make_batch_processor(dix: TorchDeviceIndex, config: GenoConfig,

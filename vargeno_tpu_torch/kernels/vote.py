@@ -33,63 +33,25 @@ loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from ..core.hashes import M32, as_i32, popcount
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "vote.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-
-_lock = threading.Lock()
-_lib = None
-build_log = ""   # nvcc/ptxas output of this process's build (register use)
+from . import _build
 
 
-def _nvcc() -> str:
-    for p in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if p and os.path.exists(p):
-            return p
-    raise RuntimeError("nvcc not found: the vote kernel is built from "
-                       "csrc/vote.cu with the CUDA toolkit")
+def _bind(lib) -> None:
+    fn = lib.vgt_vote_scan
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 5)
+    lib.vgt_vote_reg_max_c.restype = ctypes.c_int
+    lib.vgt_vote_reg_max_c.argtypes = []
 
 
 def load_library():
     """Build (once per source version) and load the kernel library."""
-    global _lib, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha256(f.read()).hexdigest()[:16]
-        so = os.path.join(_BUILD_DIR, f"libvgtvote_{tag}.so")
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            r = subprocess.run(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", tmp, _SRC],
-                capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError("nvcc failed to build csrc/vote.cu:\n"
-                                   + r.stdout + r.stderr)
-            os.replace(tmp, so)
-            build_log = r.stdout + r.stderr
-        lib = ctypes.CDLL(so)
-        fn = lib.vgt_vote_scan
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 5)
-        lib.vgt_vote_reg_max_c.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return _build.load_library("vote", _bind)
 
 
 def vote_scan_plain(ev_idx, ev_k, ev_isnb, ev_valid, C: int, ev_n=None):

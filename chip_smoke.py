@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` names a checkout of an earlier commit of this repository,
+unpacked into a directory inside this one (``git archive <commit> | tar -x
+-C .parent``, say): the real phase then profiles one forward step of that
+checkout's package too (device operations, time on the card, the vote
+kernel's own time there and on the kernel phase's random streams) and times
+its (E, B) vote entry, each checkout in a process of its own, and prints
+both side by side. Without it the run shows nothing of the parent, and the
+vote's ``ms_before`` on the kernels line is null.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -13,14 +22,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 3. kernel  -- each hand-written kernel against its plain PyTorch version on
    the card, exact equality (integers), median times of both from CUDA
    events, and the least time the card could take for the same work.
-   The vote kernel on random event streams with ragged per-read counts at
-   (E, B, C) = (96, 32768, 32), (96, 32768, 64), (32, 4096, 16), and at
-   the wide tables that overflow escalation reaches, (1200, 4096, 1024)
-   and (2000, 1024, 520) (global-workspace table); (32, 4096, 16) and
-   (2000, 1024, 520) must overflow their candidate tables. The row-gather
-   kernel at (N, R, W) = (65536, 2097152, 32) (the shape of the TPU kernel
-   it replaces), (4194304, 2097152, 32), (524288, 524288, 128), with every
-   index equal, and with N = 1.
+   The vote kernel on random event streams with ragged per-read counts,
+   packed as the step packs them ((B, E) views of (B, E + 1)-strided int64
+   records), at (E, B, C) = (96, 32768, 32), (96, 32768, 64), (8, 32768,
+   32) (the auto-tuned shape), (32, 4096, 16), and at the wide tables that
+   overflow escalation reaches, (1200, 4096, 1024) and (2000, 1024, 520)
+   (global-workspace table); (32, 4096, 16) and (2000, 1024, 520) must
+   overflow their candidate tables. Both entries (records, and the (E, B)
+   layout) against both plain versions. Timed apart: the bare launch on
+   pre-built records, the records entry, the (E, B) entry. The
+   row-gather kernel at (N, R, W) = (65536, 2097152, 32) (the shape of the
+   TPU kernel it replaces), (4194304, 2097152, 32), (524288, 524288, 128),
+   with every index equal, with N = 1, and on a permutation index (N = R
+   distinct rows of 128 B and of 512 B: the card's rate on random rows);
+   the wrapper, which launches the ring kernel for many 128 B rows and the
+   direct-load kernel for the rest, beside each kernel named outright, and
+   both kernels over N = 2**16 .. 2**22 at 128 B rows (where the choice
+   between them should lie).
 4. bench   -- the gather-rate bench (tools/bench_gather.py) on the card at
    its full table size: the main path of the row-gather kernel, whose
    launches are counted here. Prints its JSON line.
@@ -43,7 +61,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    its reads/s, its measured retry fraction and the bench phase's rates; a
    second pass with auto-tune on (reads/s of both, the tuned capacities,
    equal pileup counts required); the first two batches are re-run with
-   the plain vote and must give the same counts.
+   the plain vote and must give the same counts; the bare vote launch is
+   timed on the first batch's own records; the device operations of one
+   vote call (at most 3) and of one forward step are counted with
+   torch.profiler, the step in a process of its own, with the vote
+   kernel's own time there.
 
 The last two lines are a JSON object describing each kernel and the
 result line ``{"ok": true, "device": {...}}``. The dataset and index are
@@ -68,13 +90,21 @@ GENOME_MB, N_SNPS, N_READS, READ_LEN = 48, 500_000, 262_144, 101
 ERR_FRAC, SEED, BATCH, HT_LOAD = 0.15, 20260817, 32768, 0.24
 # (E, B, C, must overflow); the first is the main path's default shape
 KERNEL_SHAPES = [(96, 32768, 32, False), (96, 32768, 64, False),
-                 (32, 4096, 16, True), (1200, 4096, 1024, False),
-                 (2000, 1024, 520, True)]
-# (N, R, W, every index equal); the second is the one the kernels line times
-GATHER_SHAPES = [(65536, 2097152, 32, False), (4194304, 2097152, 32, False),
-                 (524288, 524288, 128, False), (100000, 2097152, 32, True),
-                 (1, 2097152, 32, False)]
+                 (8, 32768, 32, False), (32, 4096, 16, True),
+                 (1200, 4096, 1024, False), (2000, 1024, 520, True)]
+VOTE_TIMED = [(96, 32768, 32), (96, 32768, 64), (8, 32768, 32),
+              (1200, 4096, 1024)]
+# (N, R, W, index: "random", "same" or "perm"); the second is the one the
+# kernels line times
+GATHER_SHAPES = [(65536, 2097152, 32, "random"),
+                 (4194304, 2097152, 32, "random"),
+                 (2097152, 2097152, 32, "perm"),
+                 (100000, 2097152, 32, "same"), (1, 2097152, 32, "random"),
+                 (524288, 524288, 128, "random"),
+                 (524288, 524288, 128, "perm")]
 GATHER_MAIN = GATHER_SHAPES[1][:3]
+# N of both gather kernels side by side, on the (2097152, 32) table
+GATHER_CROSSOVER = [1 << p for p in range(16, 23)]
 DEVICE = "cuda"
 # the card's published peaks (H100 SXM data sheet): memory bytes/s, and
 # operations/s outside the tensor cores (the float32 rate, taken for the
@@ -98,7 +128,11 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 def random_events(E, B, C, seed):
     """Event streams with repeating idx values (2C distinct per read, a
-    few >= 2**31) and ragged counts; events past ev_n are invalid."""
+    few >= 2**31) and ragged counts; events past ev_n are invalid. Returns
+    the (E, B) quartet with ev_n, and the same events as the step's
+    records: (B, E) views of (B, E + 1)-strided int64 words whose meta
+    carries ``src`` bits from bit 7 up, with the unclamped count (full
+    reads count past E)."""
     import numpy as np
     import torch
 
@@ -111,8 +145,17 @@ def random_events(E, B, C, seed):
     valid = (rng.random((E, B)) < 0.8) & (np.arange(E)[:, None]
                                           < ev_n[None, :])
     dev = torch.device("cuda")
-    return ([torch.from_numpy(a).to(dev) for a in (idx, k, isnb, valid)],
-            torch.from_numpy(ev_n).to(dev))
+    quartet = [torch.from_numpy(a).to(dev) for a in (idx, k, isnb, valid)]
+    ev_n = torch.from_numpy(ev_n).to(dev)
+    rec_idx = torch.zeros((B, E + 1), dtype=torch.int64, device=dev)
+    rec_meta = torch.zeros_like(rec_idx)
+    rec_idx[:, :E] = quartet[0].t()
+    rec_meta[:, :E] = (quartet[1].t().long() | (quartet[2].t().long() << 5)
+                       | (quartet[3].t().long() << 6)
+                       | (torch.arange(B * E, device=dev).reshape(B, E) << 7))
+    total = ev_n.long()
+    total[total == E] += 3
+    return quartet, ev_n, (rec_idx[:, :E], rec_meta[:, :E], total)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -122,45 +165,187 @@ def bound(n_bytes: float, n_ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def device_ops(fn):
+    """(n, records): the device operations (kernels, copies, memsets) that
+    one call of ``fn`` puts on the card, and the (name, microseconds)
+    records of device operations that torch.profiler kept. ``n`` is counted
+    on the host side, from the CUDA runtime's launch, copy and memset calls
+    inside the call's span, which is exact; the device-side records of a
+    trace can come back incomplete, so they are handed on as found (those
+    of one warm-up call inside the trace included)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function("smoke_call"):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    span = next(e for e in host if e.name == "smoke_call").time_range
+    launch = re.compile(r"^cu(da)?(LaunchKernel|Memcpy|Memset)")
+    n = sum(1 for e in host if launch.match(e.name)
+            and span.start <= e.time_range.start <= span.end)
+    if n <= 0:
+        raise RuntimeError("torch.profiler recorded no device operation")
+    # the span is mirrored on the device's timeline: not an operation
+    records = [(e.name, e.time_range.elapsed_us()) for e in events
+               if e.device_type == DeviceType.CUDA and e.name != "smoke_call"]
+    return n, records
+
+
+def count_device_ops(fn) -> int:
+    return device_ops(fn)[0]
+
+
+def kernel_us(fn, name: str, traces: int = 3):
+    """Median microseconds of the device operations named ``name`` in the
+    records that ``traces`` profiler traces of ``fn`` kept (two calls a
+    trace), or None if none was kept: a short kernel's own time on the
+    card, which neither CUDA events round one call (host launch latency)
+    nor a stream of calls (the host's time to issue one) can show."""
+    import statistics
+
+    us = [t for _ in range(traces) for n, t in device_ops(fn)[1]
+          if name in n]
+    return statistics.median(us) if us else None
+
+
+def stream_ms(fn, n: int = 50, reps: int = 5) -> float:
+    """Milliseconds a call of ``fn`` in a stream of calls: CUDA events
+    round ``n`` calls in a row, over ``n``; the median of ``reps`` such
+    runs. With the calls queued behind each other the host's launch
+    latency, which a pair of events round one short call includes, is
+    hidden, so for a bare launch this is the kernel's own time (or the
+    host's time to issue a launch, if that is longer)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def raw_vote(records, C):
+    """A closure that launches the bare vote kernel on ``records`` into
+    outputs allocated once, and those outputs."""
+    import torch
+
+    from vargeno_tpu_torch.kernels import vote
+
+    ev_idx = records[0]
+    B, E = ev_idx.shape
+    dev = ev_idx.device
+    width = max(1, min(C, E))
+    process = torch.empty(B, dtype=torch.bool, device=dev)
+    target = torch.empty(B, dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.int64, device=dev)
+    ws = None
+    if width > vote.load_library().vgt_vote_reg_max_c():
+        ws = torch.empty((3, B, width), dtype=torch.int32, device=dev)
+
+    def go():
+        vote.launch_records(*records, width, process, target, ovf, ws)
+    return go, (process, target, ovf)
+
+
+def vote_bound(total, E, B, C):
+    """The kernel loads 8 B a record (the low 32-bit word of each of its
+    two int64 words; the high halves lie in the same DRAM sectors and are
+    fetched with them, which the bound does not count) up to each read's
+    clamped count and 8 B of count a read, and writes 9 B a read (and the
+    8 B counter); an event is compared with up to min(C, E) slots and
+    updates ~16 words of state."""
+    n_ev = int(total.clamp(0, E).sum())
+    return n_ev, bound(n_ev * 8 + B * 17 + 8, n_ev * (min(C, E) + 16))
+
+
 def phase_kernel_vote():
     import torch
 
-    from vargeno_tpu_torch.kernels.vote import vote_scan, vote_scan_plain
+    from vargeno_tpu_torch.kernels.vote import (vote_scan, vote_scan_plain,
+                                                vote_scan_records,
+                                                vote_scan_records_plain)
     from vargeno_tpu_torch.utils.profiling import device_ms
 
     timing = {}
     max_err = 0
     for E, B, C, must_overflow in KERNEL_SHAPES:
-        args, ev_n = random_events(E, B, C, seed=E * 1000 + C)
-        got = vote_scan(*args, C, ev_n)
-        want = vote_scan_plain(*args, C, ev_n)
+        quartet, ev_n, records = random_events(E, B, C, seed=E * 1000 + C)
+        if records[0].stride() != (E + 1, 1):
+            raise AssertionError("the records lost their row stride")
+        got = vote_scan_records(*records, C)
+        via_eb = vote_scan(*quartet, C, ev_n)
+        want = vote_scan_records_plain(*records, C)
+        want_eb = vote_scan_plain(*quartet, C, ev_n)
+        go, raw_out = raw_vote(records, C)
+        go()
         torch.cuda.synchronize()
-        for name, g, w in zip(("process", "target", "cand_overflow"),
-                              got, want):
-            err = int((g.long() - w.long()).abs().max())
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(f"vote kernel != plain at "
-                                     f"{(E, B, C)}: {name} max err {err}")
+        for entry, res in (("records entry", got), ("(E, B) entry", via_eb),
+                           ("bare launch", raw_out),
+                           ("plain (E, B)", want_eb)):
+            for name, g, w in zip(("process", "target", "cand_overflow"),
+                                  res, want):
+                err = int((g.long() - w.long()).abs().max())
+                max_err = max(max_err, err)
+                if err or g.dtype != w.dtype:
+                    raise AssertionError(
+                        f"vote {entry} != plain records version at "
+                        f"{(E, B, C)}: {name} max err {err}, {g.dtype}")
         ovf = int(got[2])
         if must_overflow and ovf <= 0:
             raise AssertionError(f"{(E, B, C)} did not overflow")
-        ms = device_ms(lambda: vote_scan(*args, C, ev_n), DEVICE, reps=20)
-        plain_ms = device_ms(lambda: vote_scan_plain(*args, C, ev_n), DEVICE,
-                             reps=5)
-        # the kernel stops at each read's ev_n, so the work this input
-        # needs is its n_ev events: 10 B each (idx 4, k 4, isnb 1, valid 1)
-        # plus 4 B of count in and 9 B out a read; an event is compared
-        # with up to min(C, E) slots and updates ~16 words of state
-        n_ev = int(ev_n.sum())
-        b_ms, b_by = bound(n_ev * 10 + B * 13, n_ev * (min(C, E) + 16))
-        timing[E, B, C] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by)
-        log("kernel", f"vote (E, B, C) = {(E, B, C)}: exact match "
-                      f"(processed {int(got[0].sum())}, cand_overflow "
-                      f"{ovf}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {b_ms:.4f} ms by {b_by} for its {n_ev} "
-                      f"events")
+        n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
+        msg = (f"vote (E, B, C) = {(E, B, C)}: both entries and the bare "
+               f"launch match the plain versions exactly (processed "
+               f"{int(got[0].sum())}, cand_overflow {ovf})")
+        if (E, B, C) in VOTE_TIMED:
+            raw_ms = device_ms(go, DEVICE, reps=20)
+            ms = device_ms(lambda: vote_scan_records(*records, C), DEVICE,
+                           reps=20)
+            eb_ms = device_ms(lambda: vote_scan(*quartet, C, ev_n), DEVICE,
+                              reps=20)
+            plain_ms = device_ms(
+                lambda: vote_scan_records_plain(*records, C), DEVICE, reps=3)
+            own_us = kernel_us(go, "vote_kernel")
+            kernel_ms = stream_ms(go)
+            entry_stream = stream_ms(lambda: vote_scan_records(*records, C))
+            eb_stream = stream_ms(lambda: vote_scan(*quartet, C, ev_n))
+            timing[E, B, C] = dict(ms=ms, kernel_ms=kernel_ms,
+                                   raw_launch_ms=raw_ms, eb_entry_ms=eb_ms,
+                                   plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+            msg += (f"; between CUDA events round one call (host launch "
+                    f"latency included): bare launch {raw_ms:.4f} ms, "
+                    f"records entry {ms:.4f} ms, (E, B) entry {eb_ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms; a call in a stream of 50 "
+                    f"calls: bare launch (the kernel's own time) "
+                    f"{kernel_ms:.4f} ms, records entry {entry_stream:.4f} "
+                    f"ms, (E, B) entry {eb_stream:.4f} ms; "
+                    f"bound {b_ms:.4f} ms by {b_by} for its {n_ev} events "
+                    f"at 8 B loaded a record; the kernel's own record in "
+                    f"a torch.profiler trace: "
+                    + ("none kept" if own_us is None else f"{own_us:.1f} us"))
+        log("kernel", msg)
     return timing, max_err
 
 
@@ -168,36 +353,53 @@ def phase_kernel_gather():
     import numpy as np
     import torch
 
+    from vargeno_tpu_torch.kernels import gather
     from vargeno_tpu_torch.kernels.gather import (gather_rows_sum,
                                                   gather_rows_sum_plain)
     from vargeno_tpu_torch.utils.profiling import device_ms
 
     rng = np.random.default_rng(11)
     dev = torch.device(DEVICE)
+    uses_ring = gather.load_library().vgt_gather_uses_ring
     timing = {}
     max_err = 0
     tables: dict = {}
-    for N, R, W, same in GATHER_SHAPES:
+    out = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def bare(idx, kernel):
+        """The bare launch of the kernel named, into a zeroed word."""
+        out.zero_()
+        gather.launch(table, idx, out, kernel)
+        return out
+
+    for N, R, W, kind in GATHER_SHAPES:
         if (R, W) not in tables:
             tables.clear()   # one 256 MiB table on the card at a time
             tables[R, W] = torch.from_numpy(rng.integers(
                 0, 2**32, (R, W), dtype=np.uint32).view(np.int32)).to(dev)
         table = tables[R, W]
-        idx_np = rng.integers(0, R, N, dtype=np.int32)
-        if same:
+        if kind == "perm":
+            idx_np = rng.permutation(R).astype(np.int32)
+        else:
+            idx_np = rng.integers(0, R, N, dtype=np.int32)
+        if kind == "same":
             idx_np[:] = idx_np[0]
         for dtype in (torch.int64, torch.int32):
             idx = torch.from_numpy(idx_np).to(dev).to(dtype)
-            got = gather_rows_sum(table, idx)
-            want = gather_rows_sum_plain(table, idx)
-            torch.cuda.synchronize()
-            err = abs(int(got) - int(want))
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(
-                    f"gather kernel != plain at {(N, R, W)} {dtype}: "
-                    f"{int(got)} vs {int(want)}")
+            want = int(gather_rows_sum_plain(table, idx))
+            for name, got in (("wrapper", gather_rows_sum(table, idx)),
+                              ("ring", bare(idx, "ring")),
+                              ("direct", bare(idx, "direct"))):
+                err = abs(int(got) - want)
+                max_err = max(max_err, err)
+                if err:
+                    raise AssertionError(
+                        f"gather kernel ({name}) != plain at {(N, R, W)} "
+                        f"{kind} {dtype}: {int(got)} vs {want}")
+        chosen = "ring" if uses_ring(N, W) else "direct"
         ms = device_ms(lambda: gather_rows_sum(table, idx), DEVICE, reps=20)
+        ring_ms = device_ms(lambda: bare(idx, "ring"), DEVICE, reps=20)
+        direct_ms = device_ms(lambda: bare(idx, "direct"), DEVICE, reps=20)
         plain_ms = device_ms(lambda: gather_rows_sum_plain(table, idx),
                              DEVICE, reps=5)
         # the one PyTorch call for the same function: gather, then reduce
@@ -209,15 +411,54 @@ def phase_kernel_gather():
         # (int32), 4 B out; one add a gathered word
         n_rows = int(torch.unique(idx).numel())
         b_ms, b_by = bound(n_rows * W * 4 + N * idx.element_size() + 4, N * W)
-        timing[N, R, W] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b_ms, bound_by=b_by,
-                               distinct_rows=n_rows)
-        log("kernel", f"gather (N, R, W) = {(N, R, W)}"
-                      f"{' (one row)' if same else ''}: exact match (sum "
-                      f"{int(got)}); kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, index_select+sum {lib_ms:.4f} ms, "
-                      f"bound {b_ms:.4f} ms by {b_by} for its {n_rows} "
-                      f"distinct rows")
+        msg = (f"gather (N, R, W) = {(N, R, W)} ({kind} index): the wrapper "
+               f"(which launches the {chosen} kernel here), the ring and "
+               f"the direct kernel match plain exactly (sum {want}); "
+               f"between CUDA events round one call: wrapper {ms:.4f} ms, "
+               f"ring {ring_ms:.4f} ms, direct {direct_ms:.4f} ms, plain "
+               f"{plain_ms:.4f} ms, index_select+sum {lib_ms:.4f} ms; bound "
+               f"{b_ms:.4f} ms by {b_by} for its {n_rows} distinct rows")
+        if kind != "same" and N >= 1 << 19:   # the large shapes
+            ring_st = stream_ms(lambda: bare(idx, "ring"), n=20)
+            direct_st = stream_ms(lambda: bare(idx, "direct"), n=20)
+            msg += (f"; a launch in a stream of 20: ring {ring_st:.4f} ms, "
+                    f"direct {direct_st:.4f} ms")
+            if kind == "perm":
+                # every row distinct: the rate of random rows out of DRAM
+                msg += (f"; {W * 4} B random rows at "
+                        f"{N * W * 4 / (ring_st * 1e-3):.4g} B/s with the "
+                        f"ring, {N * W * 4 / (direct_st * 1e-3):.4g} B/s "
+                        f"direct, by the stream's time (the card's memory "
+                        f"rate: {PEAK_BYTES_S:.4g} B/s)")
+        if kind != "perm":
+            timing[N, R, W] = dict(
+                ms=ms, ms_before=direct_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                distinct_rows=n_rows, kernel=chosen)
+        log("kernel", msg)
+        if (N, R, W) == GATHER_MAIN:
+            # both kernels over N at 128 B rows: where the choice should lie
+            rows = []
+            for n in GATHER_CROSSOVER:
+                idx = torch.from_numpy(
+                    rng.integers(0, R, n, dtype=np.int32)).to(dev)
+                want = int(gather_rows_sum_plain(table, idx))
+                for kernel in ("ring", "direct"):
+                    if int(bare(idx, kernel)) != want:
+                        raise AssertionError(
+                            f"gather {kernel} kernel != plain at N = {n}")
+                r1 = device_ms(lambda: bare(idx, "ring"), DEVICE, reps=20)
+                d1 = device_ms(lambda: bare(idx, "direct"), DEVICE, reps=20)
+                rows.append(
+                    f"N = {n}: ring {r1:.4f} / "
+                    f"{stream_ms(lambda: bare(idx, 'ring'), n=20):.4f}, "
+                    f"direct {d1:.4f} / "
+                    f"{stream_ms(lambda: bare(idx, 'direct'), n=20):.4f}, "
+                    f"launched: {'ring' if uses_ring(n, W) else 'direct'}")
+            log("kernel", f"gather, both kernels at R = {R}, W = {W} (ms, "
+                          f"one call between CUDA events / a launch in a "
+                          f"stream of 20; a zeroing of the output word is "
+                          f"in each): " + "; ".join(rows))
     return timing, max_err
 
 
@@ -275,7 +516,7 @@ def phase_golden():
     from vargeno_tpu_torch.engine.device_index import build_device_index
     from vargeno_tpu_torch.engine.geno import GenoRunner
     from vargeno_tpu_torch.index import filt, store
-    from vargeno_tpu_torch.kernels.vote import vote_scan
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
 
     d = os.path.join(CACHE, "mini")
     os.makedirs(d, exist_ok=True)
@@ -307,11 +548,11 @@ def phase_golden():
 
     def run(tag, cfg, golden, index=index, dix=dix, **runner_kw):
         runner = GenoRunner(index, cfg, device=DEVICE, dix=dix, **runner_kw)
-        before = vote_scan.launches
+        before = vote_fn.launches
         t0 = time.perf_counter()
         runner.consume_fastq(fq)
         runner.write_vcf(vcf_in, out)
-        check(tag, runner, vote_scan.launches - before,
+        check(tag, runner, vote_fn.launches - before,
               time.perf_counter() - t0, golden)
         return runner
 
@@ -339,22 +580,22 @@ def phase_golden():
         raise AssertionError(f"golden: the stopped run read "
                              f"{first.n_reads} reads")
     second = GenoRunner(index, base, device=DEVICE, dix=dix)
-    before = vote_scan.launches
+    before = vote_fn.launches
     t0 = time.perf_counter()
     second.consume_fastq(fq, checkpoint_path=ck)
     second.write_vcf(vcf_in, out)
     check(f"checkpoint at {first.n_reads} reads, resumed", second,
-          vote_scan.launches - before, time.perf_counter() - t0, golden)
+          vote_fn.launches - before, time.perf_counter() - t0, golden)
 
     # two-sample cohort: the second sample stops after 2 batches
     cohort = CohortRunner(index, ["full", "part"], base, device=DEVICE)
-    before = vote_scan.launches
+    before = vote_fn.launches
     t0 = time.perf_counter()
     cohort.consume_sample("full", fq)
     cohort.consume_sample("part", fq, limit_batches=2)
     outs = cohort.write_vcfs(vcf_in, os.path.join(d, "cohort_{sample}.vcf"))
     check("cohort sample 1 of 2", cohort._runner,
-          vote_scan.launches - before, time.perf_counter() - t0, golden,
+          vote_fn.launches - before, time.perf_counter() - t0, golden,
           vcf_path=outs[0])
     with open(outs[1]) as f:
         if f.read() == golden:
@@ -392,7 +633,92 @@ def make_dataset(d):
     return fa, vcf, fq
 
 
-def phase_real(card: str, gather_rates: dict):
+def real_paths():
+    """The real phase's cache directory and index prefix."""
+    d = os.path.join(CACHE, f"bench{GENOME_MB}mb_{N_SNPS}snp_{N_READS}r_"
+                            f"e{ERR_FRAC}_s{SEED}")
+    return d, os.path.join(d, "idx")
+
+
+def inside_checkout(path: str) -> str:
+    """``path`` made absolute; it must lie inside this checkout."""
+    real = os.path.realpath(path)
+    if os.path.commonpath([real, os.path.realpath(ROOT)]) \
+            != os.path.realpath(ROOT):
+        raise SystemExit(f"error: {path} is not inside {ROOT}")
+    return real
+
+
+def step_ops_of(pkg_root: str) -> int:
+    """``--step-ops-of DIR``: profile one forward step (single orientation,
+    default capacities, the workload's first batch, after one warm-up step)
+    of the package in the checkout DIR, on this checkout's cached workload
+    and index, and print one JSON line: the step's device operations, the
+    microseconds of the one named ``vote_kernel`` and of all of them (null
+    where the profiler did not keep the records); and, at the timed shapes'
+    random streams, the (E, B) entry's time between CUDA events round one
+    call and the vote kernel's own time inside it. Run in a process of its
+    own: a profiler trace taken late in a long process loses device
+    records."""
+    sys.path.insert(0, inside_checkout(pkg_root))
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.engine.device_index import build_device_index
+    from vargeno_tpu_torch.engine.geno import GenoRunner, _encoder
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes, iter_read_batches
+    from vargeno_tpu_torch.kernels import vote
+    from vargeno_tpu_torch.utils.profiling import device_ms
+
+    d, prefix = real_paths()
+    fq = os.path.join(d, "reads.fq")
+    L, K = autosize_shapes(fq)
+    index = store.load(prefix)
+    dix = build_device_index(index, DEVICE, HT_LOAD)
+    cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
+                     ht_target_load=HT_LOAD)
+    r = GenoRunner(index, cfg, device=DEVICE, dix=dix)
+    b = next(iter(iter_read_batches(fq, BATCH, L, K)))
+    args = r._upload(_encoder(K)(b.codes, b.n_kmers), b.qual)
+    proc = r._proc(cfg)
+
+    def step():
+        return proc.single_enc(*args, r.ref_cnt, r.alt_cnt)
+    step()
+    torch.cuda.synchronize()
+    n, records = device_ops(step)
+    vote_us = [us for name, us in records if "vote_kernel" in name]
+    out = {"step_ops": n, "vote_kernel_us": vote_us[-1] if vote_us else None,
+           # both calls of the trace on record: the second one's time
+           "busy_us": (sum(us for _, us in records[n:])
+                       if len(records) == 2 * n else None),
+           "eb_vote_kernel_us": {}, "eb_entry_ms": {}}
+    # the (E, B) entry, which every checkout has, on the random streams
+    for E, B, C in VOTE_TIMED:
+        quartet, ev_n, _ = random_events(E, B, C, seed=E * 1000 + C)
+
+        def entry():
+            return vote.vote_scan(*quartet, C, ev_n)
+        out["eb_entry_ms"][str((E, B, C))] = device_ms(entry, DEVICE,
+                                                       reps=20)
+        out["eb_vote_kernel_us"][str((E, B, C))] = kernel_us(entry,
+                                                             "vote_kernel")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def profiled_step(pkg_root: str) -> dict:
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--step-ops-of", pkg_root],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"profiling the step of {pkg_root} failed:\n"
+                           + r.stderr[-2000:])
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase_real(card: str, gather_rates: dict, parent: str | None):
     import numpy as np
     import torch
 
@@ -401,14 +727,16 @@ def phase_real(card: str, gather_rates: dict):
     from vargeno_tpu_torch.engine.geno import GenoRunner, _encoder
     from vargeno_tpu_torch.index import store
     from vargeno_tpu_torch.io.fastq import autosize_shapes, iter_read_batches
-    from vargeno_tpu_torch.kernels.vote import vote_scan, vote_scan_plain
+    from vargeno_tpu_torch.kernels.vote import (NB_FLAG, VALID_FLAG,
+                                                vote_scan,
+                                                vote_scan_records,
+                                                vote_scan_records_plain)
+    from vargeno_tpu_torch.utils.profiling import device_ms
     from vargeno_tpu_torch.utils.roofline import roofline
 
-    d = os.path.join(CACHE, f"bench{GENOME_MB}mb_{N_SNPS}snp_{N_READS}r_"
-                            f"e{ERR_FRAC}_s{SEED}")
+    d, prefix = real_paths()
     os.makedirs(d, exist_ok=True)
     fa, vcf, fq = make_dataset(d)
-    prefix = os.path.join(d, "idx")
     build_s = build_or_load_index(fa, vcf, prefix, "real")
 
     L, K = autosize_shapes(fq)
@@ -429,13 +757,15 @@ def phase_real(card: str, gather_rates: dict):
 
     # the main path: launch counts are reset just before and read just after
     runner = GenoRunner(index, cfg, device=DEVICE, dix=dix)
-    vote_scan.launches = 0
+    vote_scan_records.launches = vote_scan.launches = 0
     t0 = time.perf_counter()
     runner.consume_fastq(fq)
     if on_cuda:
         torch.cuda.synchronize()
     geno_s = time.perf_counter() - t0
-    launches = vote_scan.launches
+    launches = vote_scan_records.launches
+    if vote_scan.launches:
+        raise AssertionError("real: the step went through the (E, B) entry")
     rate = runner.n_reads / geno_s
     peak = torch.cuda.max_memory_allocated() if on_cuda else 0
     st = runner.stats_totals
@@ -497,17 +827,25 @@ def phase_real(card: str, gather_rates: dict):
                 f"scan_active_frac={tc.scan_active_frac:.5f} "
                 f"agree_cap={tc.agree_cap}")
 
-    # cross-check: the first two batches, kernel vote vs plain vote
+    # cross-check: the first two batches, kernel vote vs plain vote; the
+    # first forward batch's own records are kept for the timing below
     encode = _encoder(K)
     batches = []
     for b in iter_read_batches(fq, BATCH, L, K):
         batches.append((encode(b.codes, b.n_kmers), b.qual))
         if len(batches) == 2:
             break
+    kept = []
+
+    def keeping_vote(ev_idx, ev_meta, ev_total, C):
+        if not kept:
+            kept.append(((ev_idx, ev_meta, ev_total), C))
+        return vote_scan_records(ev_idx, ev_meta, ev_total, C)
+
     outs = []
-    for vote in (vote_scan, vote_scan_plain):
+    for hook in (keeping_vote, vote_scan_records_plain):
         r = GenoRunner(index, runner._cfg_run, device=DEVICE, dix=dix,
-                       vote=vote)
+                       vote=hook)
         masks = [r.run_batch(enc, q) for enc, q in batches]
         outs.append((r.host_counts(), masks))
     (k_rc, k_ac), k_masks = outs[0]
@@ -520,12 +858,83 @@ def phase_real(card: str, gather_rates: dict):
                              "first two batches")
     log("real", f"first two batches: kernel and plain vote give equal "
                 f"counts ({int(k_rc.sum())} ref, {int(k_ac.sum())} alt)")
+
+    # the bare launch on the first forward batch's records (real reads,
+    # real event counts)
+    records, C = kept[0]
+    B, E = records[0].shape
+    go, raw_out = raw_vote(records, C)
+    go()
+    want = vote_scan_records_plain(*records, C)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(raw_out, want)):
+        raise AssertionError("real: bare vote launch != plain on the first "
+                             "batch's records")
+    n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
+    real_raw_ms = device_ms(go, DEVICE, reps=20)
+    real_stream_ms = stream_ms(go)
+    log("real", f"[{card}] vote on the first forward batch's records, (E, "
+                f"B, C) = {(E, B, C)}, {n_ev} events (most in a read "
+                f"{int(records[2].max())}), row stride "
+                f"{records[0].stride(0)}: bare launch {real_raw_ms:.4f} ms "
+                f"between CUDA events round one call, {real_stream_ms:.4f} "
+                f"ms a launch in a stream of 50 (no less than the host's "
+                f"time to issue one), bound {b_ms:.4f} ms by {b_by}")
+
+    # device operations of one vote call: through the records entry, and
+    # through the (E, B) entry the way the step fed it before (unpacked
+    # and transposed views)
+    def eb_call():
+        ev_idx, meta, total = records
+        return vote_scan(ev_idx.t(), (meta & 0x1F).t(),
+                         ((meta & NB_FLAG) != 0).t(),
+                         ((meta & VALID_FLAG) != 0).t(), C,
+                         ev_n=total.clamp(max=E))
+    vote_ops = count_device_ops(lambda: vote_scan_records(*records, C))
+    eb_ops = count_device_ops(eb_call)
+    if vote_ops > 3:
+        raise AssertionError(f"real: a vote call is {vote_ops} device "
+                             f"operations, more than 3")
+    log("real", f"device operations of one vote call (torch.profiler): "
+                f"{vote_ops} through the records entry, {eb_ops} through "
+                f"the (E, B) entry on unpacked, transposed views")
+
+    # one forward step of this checkout, and of the --parent checkout,
+    # each profiled in a process of its own
+    mine = profiled_step(ROOT)
+    theirs = profiled_step(parent) if parent else None
+
+    def told(got):
+        return (f"{got['step_ops']} device operations, "
+                f"{got['busy_us']} us on the card in all, vote kernel "
+                f"{got['vote_kernel_us']} us")
+    log("real", f"[{card}] one forward step (torch.profiler): {told(mine)}; "
+                f"the same step of the parent checkout: "
+                f"{told(theirs) if theirs else 'not run (no --parent)'}")
+    for key, what in (("eb_vote_kernel_us", "vote kernel's own time (us, "
+                       "torch.profiler)"),
+                      ("eb_entry_ms", "(E, B) vote entry (ms between CUDA "
+                       "events round one call)")):
+        log("real", f"[{card}] {what} on the kernel phase's random streams: "
+                    f"{json.dumps(mine[key])}; the parent checkout's: "
+                    + (json.dumps(theirs[key]) if theirs
+                       else "not run (no --parent)"))
     return dict(build_s=build_s, load_s=load_s, rate=rate,
                 tuned_rate=tuned_rate, peak=peak, launches=launches,
-                roofline=report)
+                roofline=report, real_raw_ms=real_raw_ms,
+                real_kernel_us=mine["vote_kernel_us"],
+                kernel_us=mine["eb_vote_kernel_us"], parent=theirs,
+                vote_call_ops=vote_ops, step_ops=mine["step_ops"])
 
 
 def main() -> int:
+    argv = sys.argv[1:]
+    parent = None
+    if len(argv) == 2 and argv[0] in ("--parent", "--step-ops-of"):
+        parent = argv[1]
+    elif argv:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     try:
         import numpy as np
         import torch
@@ -535,6 +944,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv and argv[0] == "--step-ops-of":
+        return step_ops_of(parent)
+    if parent:
+        parent = inside_checkout(parent)
     sys.path.insert(0, ROOT)
     try:
         from vargeno_tpu_torch import native
@@ -568,22 +981,42 @@ def main() -> int:
     gather_t, gather_err = phase_kernel_gather()
     rates, gather_launches = phase_bench(card)
     phase_golden()
-    real = phase_real(card, rates)
+    real = phase_real(card, rates, parent)
 
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
+    main_shape = str(KERNEL_SHAPES[0][:3])
+    before = real["parent"]
     print(json.dumps({"kernels": [
         {"name": "vote_scan", "route": "cuda",
          "source": "vargeno_tpu_torch/csrc/vote.cu",
          "replaces": "vargeno_tpu/engine/pallas_vote.py:26",
          "launches": real["launches"], "max_abs_err": vote_err,
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
-         **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None},
+         **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
+         "ms_before": before["eb_entry_ms"][main_shape] if before else None,
+         "ms_before_of": "this run: the (E, B) entry of the --parent "
+                         "checkout, which its step called (null without "
+                         "--parent)",
+         "ms_of": "the records entry (zero one word, launch)",
+         "real_batch_raw_launch_ms": real["real_raw_ms"],
+         "real_step_kernel_us": real["real_kernel_us"],
+         "kernel_us": real["kernel_us"][main_shape],
+         "kernel_us_before": (before["eb_vote_kernel_us"][main_shape]
+                              if before else None),
+         "step_ops_before": before["step_ops"] if before else None,
+         "device_ops_a_step": real["step_ops"],
+         "device_ops_a_call": real["vote_call_ops"]},
         {"name": "gather_rows_sum", "route": "cuda",
          "source": "vargeno_tpu_torch/csrc/gather.cu",
          "replaces": "tools/bench_gather.py:245",
          "launches": gather_launches, "max_abs_err": gather_err,
          "shape": "(N, R, W) = " + str(GATHER_MAIN),
-         **gather_t[GATHER_MAIN]}]}), flush=True)
+         **gather_t[GATHER_MAIN],
+         "ms_before_of": "this run: the direct-load kernel, which was the "
+                         "only one before, named outright",
+         "ms_of": "the wrapper (zero one word, launch the kernel the "
+                  "library picks: see kernel)"}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

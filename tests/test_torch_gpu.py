@@ -22,9 +22,13 @@ from vargeno_tpu_torch.engine.batch import make_batch_processor
 from vargeno_tpu_torch.engine.cohort import CohortRunner
 from vargeno_tpu_torch.engine.geno import GenoRunner
 from vargeno_tpu_torch.io.fastq import iter_read_batches
+from vargeno_tpu_torch.kernels import gather as gather_mod
+from vargeno_tpu_torch.kernels import vote as vote_mod
 from vargeno_tpu_torch.kernels.gather import (gather_rows_sum,
                                               gather_rows_sum_plain)
-from vargeno_tpu_torch.kernels.vote import vote_scan, vote_scan_plain
+from vargeno_tpu_torch.kernels.vote import (vote_scan, vote_scan_plain,
+                                            vote_scan_records,
+                                            vote_scan_records_plain)
 from vargeno_tpu_torch.tools.bench_gather import bench
 
 torch.set_num_threads(2)
@@ -70,11 +74,109 @@ def test_vote_kernel_matches_plain(cuda, E, B, C):
         assert int(got[2]) > 0
 
 
+def _records(E, B, C, seed, pad, dev):
+    """The events of ``_events`` packed as the step packs them: (B, E) views
+    of (B, E + pad)-strided int64 words, junk in the padding, ``src`` bits
+    above bit 7 of meta, counts of full reads running past E."""
+    idx, k, isnb, valid, ev_n = _events(E, B, C, seed)
+    rng = np.random.default_rng(seed + 1)
+    rec_idx = torch.from_numpy(rng.integers(0, 2**32, (B, E + pad)))
+    rec_meta = torch.from_numpy(rng.integers(0, 2**32, (B, E + pad)))
+    rec_idx[:, :E] = idx.t()
+    rec_meta[:, :E] = (k.t().long() | (isnb.t().long() << 5)
+                       | (valid.t().long() << 6)
+                       | torch.from_numpy(rng.integers(0, 2**25, (B, E)) << 7))
+    total = ev_n.long()
+    total[total == E] += 7
+    return ((idx, k, isnb, valid, ev_n),
+            (rec_idx.to(dev)[:, :E], rec_meta.to(dev)[:, :E], total.to(dev)))
+
+
+# launched widths min(C, E) = 8, 16, 32, 64, 512, 1024: 8 lanes a read x 1
+# and 2 slots, the width-32 choice, 32 lanes x 2 and 16 register slots, and
+# the global-workspace table; B off the multiples of the reads a warp
+@pytest.mark.parametrize("E,B,C", [(8, 4099, 32), (16, 1001, 16),
+                                   (96, 4097, 32), (96, 4096, 64),
+                                   (600, 511, 512), (1200, 510, 1024),
+                                   (3, 33, 1), (40, 5, 4)])
+def test_vote_records_kernel_matches_plain(cuda, E, B, C):
+    quartet, records = _records(E, B, C, C + E, pad=1, dev=cuda)
+    assert records[0].stride() == (E + 1, 1)
+    before = vote_scan_records.launches
+    got = vote_scan_records(*records, C)
+    torch.cuda.synchronize()
+    assert vote_scan_records.launches == before + 1
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int64
+    assert got[2].dtype == torch.int64 and got[2].shape == ()
+    want = vote_scan_records_plain(*(t.cpu() for t in records), C)
+    via_eb = vote_scan(*(t.to(cuda) for t in quartet[:4]), C,
+                       quartet[4].to(cuda))
+    for a, b, c in zip(got, want, via_eb):
+        assert torch.equal(a.cpu(), b)
+        assert torch.equal(c.cpu(), b)
+    if (E, C) == (40, 4):
+        assert int(got[2]) > 0
+
+
+# every table the launcher can pick: 8 lanes x 1 and 2 slots, 32 lanes x 1,
+# 2, 4, 8 and 16 slots, the global workspace; a row stride well off E
+@pytest.mark.parametrize("E,B,C", [(8, 4099, 8), (96, 1000, 7),
+                                   (16, 1001, 16), (96, 4097, 32),
+                                   (96, 1003, 64), (200, 515, 128),
+                                   (300, 509, 256), (600, 255, 512),
+                                   (700, 130, 1024)])
+def test_vote_bare_launch_matches_plain(cuda, E, B, C):
+    """The bare launch (what the smoke run times as the kernel's own) at
+    each table the launcher picks by width."""
+    _, records = _records(E, B, C, 3 * C + E, pad=5, dev=cuda)
+    assert records[0].stride() == (E + 5, 1)
+    width = min(C, E)
+    process = torch.empty(B, dtype=torch.bool, device=cuda)
+    target = torch.empty(B, dtype=torch.int64, device=cuda)
+    ovf = torch.zeros((), dtype=torch.int64, device=cuda)
+    ws = None
+    if width > vote_mod.load_library().vgt_vote_reg_max_c():
+        ws = torch.empty((3, B, width), dtype=torch.int32, device=cuda)
+    vote_mod.launch_records(*records, width, process, target, ovf, ws)
+    torch.cuda.synchronize()
+    want = vote_scan_records_plain(*(t.cpu() for t in records), C)
+    for a, b in zip((process, target, ovf), want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_vote_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    _, (idx, meta, total) = _records(8, 64, 4, 1, pad=1, dev=cuda)
+    before = vote_scan_records.launches
+    with pytest.raises(ValueError):
+        vote_scan_records(idx, meta, total, 0)
+    with pytest.raises(TypeError):
+        vote_scan_records(idx.int(), meta, total, 4)
+    with pytest.raises(ValueError):
+        vote_scan_records(idx.t().contiguous().t(), meta, total, 4)
+    with pytest.raises(ValueError):
+        vote_scan_records(idx, meta.contiguous(), total, 4)
+    with pytest.raises(ValueError):
+        vote_scan_records(idx, meta, total.cpu(), 4)
+    with pytest.raises(ValueError):
+        vote_scan_records(idx, meta, total[:63], 4)
+    assert vote_scan_records.launches == before
+    empty = vote_scan_records(idx[:0], meta[:0], total[:0], 4)
+    assert empty[0].shape == (0,) and int(empty[2]) == 0
+    assert vote_scan_records.launches == before
+
+
+# the wrapper on both sides of the library's choice (the ring from 2**17
+# rows of 128 B up, the direct kernel below that and at every other width):
+# N off the multiples of 32, W = 32 / 64 / 96 / 128 / 160 / 256, every
+# index equal
 @pytest.mark.parametrize("N,R,W,same", [
     (65536, 1 << 18, 32, False), (1 << 20, 1 << 18, 32, False),
     (1 << 17, 1 << 16, 128, False), (5000, 4096, 96, False),
     (100000, 1 << 18, 32, True), (1, 4096, 32, False),
-    (33, 7, 256, False)])
+    (33, 7, 256, False), (5, 4096, 32, False), (77, 4096, 64, False),
+    (1200003, 1 << 18, 32, False), (100001, 1 << 14, 64, False),
+    (70001, 1 << 14, 128, False), (5000, 4096, 160, False),
+    (1 << 21, 1 << 18, 32, True)])
 def test_gather_kernel_matches_plain(cuda, N, R, W, same):
     rng = np.random.default_rng(N + W)
     table = torch.from_numpy(rng.integers(
@@ -93,6 +195,43 @@ def test_gather_kernel_matches_plain(cuda, N, R, W, same):
         assert int(got) == int(gather_rows_sum_plain(table.cpu(), ix.cpu()))
 
 
+# N below one stage (32 rows), below the ring's depth (64 rows a warp), off
+# the multiples of 32; every width the ring takes; every index equal
+@pytest.mark.parametrize("N,R,W,same", [
+    (1 << 18, 1 << 16, 32, False), (40001, 4096, 128, False),
+    (999, 512, 64, False), (3, 64, 32, False), (33, 64, 128, False),
+    (50, 64, 32, False), (1000003, 1 << 18, 32, False),
+    (100001, 1 << 14, 64, False), (100000, 1 << 14, 32, True)])
+def test_gather_ring_and_direct_kernels_match_plain(cuda, N, R, W, same):
+    """Each kernel named outright through the bare launch, whatever the
+    library would pick at the shape."""
+    rng = np.random.default_rng(N)
+    table = torch.from_numpy(rng.integers(
+        0, 2**32, (R, W), dtype=np.uint32).view(np.int32)).to(cuda)
+    idx = rng.integers(0, R, N, dtype=np.int64)
+    if same:
+        idx[:] = idx[0]
+    for dtype in (torch.int32, torch.int64):
+        ix = torch.from_numpy(idx).to(cuda).to(dtype)
+        want = int(gather_rows_sum_plain(table, ix))
+        for kernel in ("ring", "direct", "chosen"):
+            out = torch.zeros((), dtype=torch.int32, device=cuda)
+            gather_mod.launch(table, ix, out, kernel)
+            torch.cuda.synchronize()
+            assert int(out) == want, kernel
+
+
+def test_gather_ring_refuses_rows_wider_than_a_slot(cuda):
+    table = torch.zeros((64, 160), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    out = torch.zeros((), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        gather_mod.launch(table, idx, out, "ring")
+    gather_mod.launch(table, idx, out, "direct")
+    torch.cuda.synchronize()
+    assert int(out) == 0
+
+
 def test_gather_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     table = torch.zeros((64, 32), dtype=torch.int32, device=cuda)
     idx = torch.zeros(8, dtype=torch.int32, device=cuda)
@@ -109,6 +248,9 @@ def test_gather_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         gather_rows_sum(table, idx.cpu())
     with pytest.raises(ValueError):
         gather_rows_sum(table.t().contiguous().t(), idx)
+    flat = torch.zeros(64 * 32 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):   # rows 4 B off a 16 B boundary
+        gather_rows_sum(flat[1:].view(64, 32), idx)
     assert gather_rows_sum.launches == before
     empty = gather_rows_sum(table, idx[:0])
     assert int(empty) == 0 and gather_rows_sum.launches == before
@@ -174,9 +316,9 @@ def test_runner_on_cuda_with_wide_candidate_tables(cuda, small_index):
     for E, C in ((192, 256), (640, 1024)):
         cfg = GenoConfig(**base, events_per_read=E, candidates_per_read=C)
         run = GenoRunner(small_index, cfg, device=cuda)
-        before = vote_scan.launches
+        before = vote_scan_records.launches
         run.consume_fastq(fq)
-        assert vote_scan.launches > before
+        assert vote_scan_records.launches > before
         got = run.host_counts()
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
@@ -226,7 +368,7 @@ def test_runner_modes_on_cuda_match_cpu(cuda, small_index, tmp_path):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
 
-    before = vote_scan.launches
+    before = vote_scan_records.launches
     dual = GenoRunner(small_index, GenoConfig(**base), device=cuda, dix=dix,
                       queued_orientation=False)
     dual.consume_fastq(fq)
@@ -254,4 +396,4 @@ def test_runner_modes_on_cuda_match_cpu(cuda, small_index, tmp_path):
     np.testing.assert_array_equal(a_rc, want[0])
     np.testing.assert_array_equal(a_ac, want[1])
     assert int(cohort.counts["b"][0].sum()) < int(a_rc.sum())
-    assert vote_scan.launches > before
+    assert vote_scan_records.launches > before

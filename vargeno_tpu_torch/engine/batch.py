@@ -33,7 +33,7 @@ import torch
 from ..config import GenoConfig, NO_MODIFICATION, POS_AMBIGUOUS
 from ..core.hashes import M32, hash32, popcount, snp_bf_bit, widen
 from ..core.kmer import encode_batch, rc_enc
-from ..kernels.vote import vote_scan
+from ..kernels.vote import NB_FLAG, VALID_FLAG, vote_scan_records
 from .backend import LocalBackend
 from .device_index import TorchDeviceIndex
 from .scan_ops import compact_src, cumsum_mask
@@ -82,10 +82,11 @@ class BatchProcessor:
     """The per-batch step for one config. ``single_enc`` runs one
     orientation and ``dual_enc`` both, from pre-encoded (hi, lo) k-mer
     words; ``dual`` encodes base codes on the device first. ``vote`` is the
-    vote implementation (the kernel wrapper by default)."""
+    vote implementation, called as ``vote_scan_records`` is (the kernel
+    wrapper by default)."""
 
     def __init__(self, dix: TorchDeviceIndex, config: GenoConfig,
-                 vote=vote_scan):
+                 vote=vote_scan_records):
         cfg = self.cfg = config
         self.dix = dix
         self.vote = vote
@@ -358,7 +359,6 @@ class BatchProcessor:
         NEV = B * (E + 1)
         ev_idx_f = torch.zeros(NEV + 1, dtype=_I64, device=dev)
         ev_meta_f = torch.zeros(NEV + 1, dtype=_I64, device=dev)
-        NB_FLAG, VALID_FLAG = 1 << 5, 1 << 6
 
         # exact unambiguous: one event at its group's base slot
         kslot = torch.arange(K, device=dev)[None, :].expand(B, K)
@@ -440,15 +440,15 @@ class BatchProcessor:
                          torch.where(se_ok, se_rows[:, 4], NO_MODIFICATION)],
                         -1)], 0)
 
+        # the vote and the pileup read the records in place: (B, E) views
+        # of the (B, E + 1)-strided word buffers
+        ev_idx = ev_idx_f[:NEV].reshape(B, E + 1)[:, :E]
         meta = ev_meta_f[:NEV].reshape(B, E + 1)[:, :E]
-        buf = dict(idx=ev_idx_f[:NEV].reshape(B, E + 1)[:, :E], meta=meta,
-                   k=meta & 0x1F, isnb=(meta & NB_FLAG) != 0,
-                   valid=(meta & VALID_FLAG) != 0, kt=kt)
+        buf = dict(idx=ev_idx, meta=meta, valid=(meta & VALID_FLAG) != 0,
+                   kt=kt)
 
         # ---- vote scan (improved_index_table_add, qv.cc:132-178) ----
-        process, target, cand_ovf = self.vote(
-            buf["idx"].t(), buf["k"].t(), buf["isnb"].t(), buf["valid"].t(),
-            C, ev_n=ev_total.clamp(max=E))
+        process, target, cand_ovf = self.vote(ev_idx, meta, ev_total, C)
         stats = dict(ni_overflow=ni_overflow, probe_overflow=ph_overflow,
                      event_overflow=ev_overflow, sev_overflow=sev_overflow,
                      cand_overflow=cand_ovf, snp_scan_overflow=scan_ovf,
@@ -624,5 +624,5 @@ def _backend_stats(be: LocalBackend, stats: dict) -> None:
 
 
 def make_batch_processor(dix: TorchDeviceIndex, config: GenoConfig,
-                         vote=vote_scan) -> BatchProcessor:
+                         vote=vote_scan_records) -> BatchProcessor:
     return BatchProcessor(dix, config, vote)

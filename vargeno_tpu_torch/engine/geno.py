@@ -37,7 +37,7 @@ from ..finalize import finalize_calls
 from ..index import store
 from ..io.fastq import iter_read_batches, prefetch
 from ..io.vcf_writer import write_calls_vcf
-from ..kernels.vote import vote_scan
+from ..kernels.vote import vote_scan_records
 from ..utils.profiling import Meter
 from . import checkpoint as ckpt
 from .autotune import TUNE_KEYS, tuned_config
@@ -146,8 +146,8 @@ class GenoRunner:
     def __init__(self, index: store.VarGenoIndex,
                  config: GenoConfig = DEFAULT_CONFIG,
                  device: str | torch.device = "cuda",
-                 dix: Optional[TorchDeviceIndex] = None, vote=vote_scan,
-                 queued_orientation: bool = True,
+                 dix: Optional[TorchDeviceIndex] = None,
+                 vote=vote_scan_records, queued_orientation: bool = True,
                  metrics_path: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -14,8 +14,10 @@ kernel's sum equals the plain version's exactly, whatever the order.
 
 ``gather_rows_sum`` runs the plain version for a tensor on the CPU, and
 launches the kernel for a CUDA tensor (or raises) -- there is no fallback
-between the two. The kernel is compiled with nvcc for sm_90a at first use
-(``kernels/_build.py``).
+between the two. The source holds two kernels behind one entry, a ring of
+bulk asynchronous copies for many 128 B rows and direct loads for the rest;
+the library picks by the shape. It is compiled with nvcc for sm_90a at
+first use (``kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ def _bind(lib) -> None:
     fn = lib.vgt_gather_rows_sum
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
+    fn = lib.vgt_gather_uses_ring
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
 
 
 def load_library():
@@ -50,10 +55,31 @@ def gather_rows_sum_plain(table: torch.Tensor,
     return (total - ((total >> 31) << 32)).to(torch.int32)
 
 
+KERNELS = {"chosen": 0, "ring": 1, "direct": 2}
+
+
+def launch(table, idx, out, kernel: str = "chosen") -> None:
+    """The bare kernel launch on the current stream, nothing checked:
+    adds the sum into ``out`` (0-d int32, zeroed by the caller). The library
+    picks the ring kernel for many 128 B rows and the direct-load kernel
+    for the rest, which is what ``gather_rows_sum`` launches; ``kernel`` =
+    "ring" (W = 32, 64 or 128) or "direct" names one whatever the shape, so
+    that the choice can be measured from both sides."""
+    dev = table.device
+    with torch.cuda.device(dev):
+        rc = load_library().vgt_gather_rows_sum(
+            table.data_ptr(), idx.data_ptr(), idx.shape[0], table.shape[1],
+            int(idx.dtype == torch.int64), out.data_ptr(), KERNELS[kernel],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gather kernel launch failed: CUDA error {rc}")
+
+
 def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table (R, W) int32 bit patterns of uint32 words, W a multiple of 32;
-    idx (N,) int32 or int64 with 0 <= idx < R (not checked on the device).
-    Returns the 0-d int32 sum over i, w of table[idx[i], w] modulo 2**32."""
+    """table (R, W) int32 bit patterns of uint32 words, W a multiple of 32,
+    16 B aligned; idx (N,) int32 or int64 with 0 <= idx < R (not checked on
+    the device). Returns the 0-d int32 sum over i, w of table[idx[i], w]
+    modulo 2**32."""
     dev = table.device
     if dev.type == "cpu":
         return gather_rows_sum_plain(table, idx)
@@ -73,17 +99,14 @@ def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{dev}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows_sum: table and idx must be contiguous")
-    lib = load_library()
+    if table.data_ptr() % 16:
+        raise ValueError("gather_rows_sum: table is not 16-byte aligned (the "
+                         "ring kernel copies rows in bulk)")
     with torch.cuda.device(dev):
         out = torch.zeros((), dtype=torch.int32, device=dev)
-        if idx.shape[0] == 0:
-            return out
-        rc = lib.vgt_gather_rows_sum(
-            table.data_ptr(), idx.data_ptr(), idx.shape[0], table.shape[1],
-            int(idx.dtype == torch.int64), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gather kernel launch failed: CUDA error {rc}")
+    if idx.shape[0] == 0:
+        return out
+    launch(table, idx, out)
     gather_rows_sum.launches += 1
     return out
 

@@ -16,12 +16,22 @@ events in order:
 
 process = has_best and best_freq > 1 and not ambiguous; target = best idx.
 
-Public layout is the JAX one, events-major (E, B). ``vote_scan`` runs the
-plain version for a tensor on the CPU, and launches the kernel for a
-CUDA tensor (or raises) -- there is no fallback between the two.
+Two entries, one kernel:
+
+- ``vote_scan_records`` takes the step's event records as the step builds
+  them: read-major (B, E) views of int64 words with any row stride, idx in
+  one and ``meta = k | isnb << 5 | valid << 6 | src << 7`` in the other,
+  and the unclamped per-read count. The kernel decodes them itself, so a
+  call is the launch plus the zeroing of one counter word.
+- ``vote_scan`` keeps the JAX layout, events-major (E, B) with k / isnb /
+  valid apart; on the card it packs its arguments into records first.
+
+Each runs its plain version for a tensor on the CPU, and launches the
+kernel for a CUDA tensor (or raises) -- there is no fallback between the
+two.
 
 A read inserts at most one candidate per event, so a table of min(C, E)
-slots gives the same result as one of C; the wrapper launches with that
+slots gives the same result as one of C; the wrappers launch with that
 width. Up to 512 slots the table sits in registers; a wider one (overflow
 escalation doubles C without a bound) in a global workspace.
 
@@ -36,15 +46,18 @@ import ctypes
 
 import torch
 
-from ..core.hashes import M32, as_i32, popcount
+from ..core.hashes import M32, popcount
 from . import _build
+
+_INTS = (torch.int32, torch.int64)
+NB_FLAG, VALID_FLAG = 1 << 5, 1 << 6   # meta = k | isnb<<5 | valid<<6 | ...
 
 
 def _bind(lib) -> None:
-    fn = lib.vgt_vote_scan
+    fn = lib.vgt_vote_records
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 5)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
     lib.vgt_vote_reg_max_c.restype = ctypes.c_int
     lib.vgt_vote_reg_max_c.argtypes = []
 
@@ -114,65 +127,153 @@ def vote_scan_plain(ev_idx, ev_k, ev_isnb, ev_valid, C: int, ev_n=None):
     return process, target, covf
 
 
-def _check(t, name, shape, dtypes, dev):
+def vote_scan_records_plain(ev_idx, ev_meta, ev_total, C: int):
+    """Plain PyTorch version of ``vote_scan_records``: unpack the records,
+    then ``vote_scan_plain``."""
+    E = ev_idx.shape[1]
+    return vote_scan_plain(
+        ev_idx.t(), (ev_meta & 0x1F).t(), ((ev_meta & NB_FLAG) != 0).t(),
+        ((ev_meta & VALID_FLAG) != 0).t(), C, ev_total.clamp(0, E))
+
+
+def _check(fn, t, name, shape, dtypes, dev):
     if t.device != dev:
-        raise ValueError(f"vote_scan: {name} on {t.device}, expected {dev}")
+        raise ValueError(f"{fn}: {name} on {t.device}, expected {dev}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"vote_scan: {name} shape {tuple(t.shape)}, "
+        raise ValueError(f"{fn}: {name} shape {tuple(t.shape)}, "
                          f"expected {shape}")
     if t.dtype not in dtypes:
-        raise TypeError(f"vote_scan: {name} dtype {t.dtype}")
+        raise TypeError(f"{fn}: {name} dtype {t.dtype}")
 
 
-def vote_scan(ev_idx, ev_k, ev_isnb, ev_valid, C: int, ev_n=None):
-    """ev_* are (E, B): idx int32/int64 (32-bit words), k int32/int64 in
-    [0, 32), isnb/valid bool; ev_n (B,) is each read's event count.
-    Returns (process (B,) bool, target (B,) int64 words, cand_overflow 0-d
-    int64)."""
-    dev = ev_idx.device
-    if dev.type == "cpu":
-        return vote_scan_plain(ev_idx, ev_k, ev_isnb, ev_valid, C, ev_n)
-    if dev.type != "cuda":
-        raise ValueError(f"vote_scan: unsupported device {dev}")
+def _check_common(fn, dev, C):
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {dev}")
     if C < 1:
-        raise ValueError(f"vote_scan: C={C} must be at least 1")
-    E, B = ev_idx.shape
-    ints = (torch.int32, torch.int64)
-    _check(ev_idx, "ev_idx", (E, B), ints, dev)
-    _check(ev_k, "ev_k", (E, B), ints, dev)
-    _check(ev_isnb, "ev_isnb", (E, B), (torch.bool,), dev)
-    _check(ev_valid, "ev_valid", (E, B), (torch.bool,), dev)
-    if ev_n is None:
-        ev_n = torch.full((B,), E, dtype=torch.int32, device=dev)
-    _check(ev_n, "ev_n", (B,), ints, dev)
-    if ev_idx.dtype == torch.int64:
-        ev_idx = as_i32(ev_idx)
-    ev_idx = ev_idx.contiguous()
-    ev_k = ev_k.to(torch.int32).contiguous()
-    ev_isnb = ev_isnb.contiguous()
-    ev_valid = ev_valid.contiguous()
-    ev_n = ev_n.to(torch.int32).contiguous()
-    process = torch.empty(B, dtype=torch.bool, device=dev)
-    target = torch.empty(B, dtype=torch.int32, device=dev)
-    ovf = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return process, target.long(), ovf.sum(dtype=torch.int64)
-    lib = load_library()
-    width = max(1, min(C, E))   # at most E inserts: same result as C slots
-    ws = None
-    if width > lib.vgt_vote_reg_max_c():
-        ws = torch.empty((3, B, width), dtype=torch.int32, device=dev)
+        raise ValueError(f"{fn}: C={C} must be at least 1")
+
+
+def _empty_result(dev):
+    return (torch.zeros(0, dtype=torch.bool, device=dev),
+            torch.zeros(0, dtype=torch.int64, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def launch_records(ev_idx, ev_meta, ev_total, width: int, process, target,
+                   ovf, ws=None):
+    """The bare kernel launch on the current stream, nothing checked and
+    nothing allocated: (B, E) int64 record views of one row stride, (B,)
+    int64 counts, a table of ``width`` slots (``ws``: (3, B, width) int32
+    when width > 512), outputs process (B,) bool, target (B,) int64 and
+    ``ovf`` 0-d int64 that the caller has zeroed. Timing this is timing
+    the kernel apart from its wrapper."""
+    B, E = ev_idx.shape
+    dev = ev_idx.device
     with torch.cuda.device(dev):
-        rc = lib.vgt_vote_scan(
-            ev_idx.data_ptr(), ev_k.data_ptr(), ev_isnb.data_ptr(),
-            ev_valid.data_ptr(), ev_n.data_ptr(), E, B, width,
-            None if ws is None else ws.data_ptr(),
-            process.data_ptr(), target.data_ptr(), ovf.data_ptr(),
+        rc = load_library().vgt_vote_records(
+            ev_idx.data_ptr(), ev_meta.data_ptr(), ev_total.data_ptr(),
+            ev_idx.stride(0), E, B, width,
+            None if ws is None else ws.data_ptr(), process.data_ptr(),
+            target.data_ptr(), ovf.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"vote kernel launch failed: CUDA error {rc}")
+
+
+def _launch(ev_idx, ev_meta, ev_total, C):
+    """Allocate the outputs (and the workspace of a wide table), zero the
+    counter and launch: two device operations."""
+    B, E = ev_idx.shape
+    dev = ev_idx.device
+    width = max(1, min(C, E))   # at most E inserts: same result as C slots
+    process = torch.empty(B, dtype=torch.bool, device=dev)
+    target = torch.empty(B, dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.int64, device=dev)
+    ws = None
+    if width > load_library().vgt_vote_reg_max_c():
+        ws = torch.empty((3, B, width), dtype=torch.int32, device=dev)
+    launch_records(ev_idx, ev_meta, ev_total, width, process, target, ovf, ws)
+    return process, target, ovf
+
+
+def vote_scan_records(ev_idx, ev_meta, ev_total, C: int):
+    """The vote over event records. ev_idx, ev_meta: (B, E) int64 words,
+    unit stride along E and one row stride >= E (the step hands views of its
+    (B, E + 1) buffers, uncopied); idx is the low 32 bits of its word, meta
+    is k | isnb << 5 | valid << 6 and any bits from bit 7 up, which are
+    ignored. ev_total (B,) int64: each read's event count, clamped to
+    [0, E] here; records at e >= ev_total[b] are skipped.
+    Returns (process (B,) bool, target (B,) int64 words, cand_overflow 0-d
+    int64)."""
+    fn = "vote_scan_records"
+    dev = ev_idx.device
+    _check_common(fn, dev, C)
+    if ev_idx.dim() != 2:
+        raise ValueError(f"{fn}: ev_idx must be (B, E), got "
+                         f"{tuple(ev_idx.shape)}")
+    B, E = ev_idx.shape
+    _check(fn, ev_idx, "ev_idx", (B, E), (torch.int64,), dev)
+    _check(fn, ev_meta, "ev_meta", (B, E), (torch.int64,), dev)
+    _check(fn, ev_total, "ev_total", (B,), (torch.int64,), dev)
+    if B == 0:
+        return _empty_result(dev)
+    if dev.type == "cpu":
+        return vote_scan_records_plain(ev_idx, ev_meta, ev_total, C)
+    for t, name in ((ev_idx, "ev_idx"), (ev_meta, "ev_meta")):
+        if E > 1 and t.stride(1) != 1:
+            raise ValueError(f"{fn}: {name} is not unit-stride along E")
+        if B > 1 and (t.stride(0) < E or t.stride(0) != ev_idx.stride(0)):
+            raise ValueError(f"{fn}: {name} row stride {t.stride(0)}")
+    if not ev_total.is_contiguous():
+        raise ValueError(f"{fn}: ev_total must be contiguous")
+    if B == 1 or E <= 1:   # strides torch leaves free: make them plain
+        ev_idx, ev_meta = ev_idx.contiguous(), ev_meta.contiguous()
+    out = _launch(ev_idx, ev_meta, ev_total, C)
+    vote_scan_records.launches += 1
+    return out
+
+
+vote_scan_records.launches = 0   # kernel launches since the last reset
+
+
+def vote_scan(ev_idx, ev_k, ev_isnb, ev_valid, C: int, ev_n=None):
+    """The vote in the JAX layout. ev_* are (E, B): idx int32/int64 (32-bit
+    words), k int32/int64 in [0, 32), isnb/valid bool; ev_n (B,) is each
+    read's event count (E when None). On the card the arguments are packed
+    into records and go through the kernel of ``vote_scan_records``.
+    Returns (process (B,) bool, target (B,) int64 words, cand_overflow 0-d
+    int64)."""
+    fn = "vote_scan"
+    dev = ev_idx.device
+    _check_common(fn, dev, C)
+    if ev_idx.dim() != 2:
+        raise ValueError(f"{fn}: ev_idx must be (E, B), got "
+                         f"{tuple(ev_idx.shape)}")
+    E, B = ev_idx.shape
+    _check(fn, ev_idx, "ev_idx", (E, B), _INTS, dev)
+    _check(fn, ev_k, "ev_k", (E, B), _INTS, dev)
+    _check(fn, ev_isnb, "ev_isnb", (E, B), (torch.bool,), dev)
+    _check(fn, ev_valid, "ev_valid", (E, B), (torch.bool,), dev)
+    if ev_n is not None:
+        _check(fn, ev_n, "ev_n", (B,), _INTS, dev)
+    if B == 0:
+        return _empty_result(dev)
+    if dev.type == "cpu":
+        return vote_scan_plain(ev_idx, ev_k, ev_isnb, ev_valid, C, ev_n)
+    # records: the kernel reads each word's low 32 bits, so idx is widened
+    # as it is; meta is put together in k's type, then transposed and
+    # widened in one copy
+    rec_idx = torch.empty((B, E), dtype=torch.int64, device=dev)
+    rec_idx.copy_(ev_idx.t())
+    meta = torch.add(ev_k & 0x1F, ev_isnb, alpha=NB_FLAG)
+    meta.add_(ev_valid, alpha=VALID_FLAG)
+    rec_meta = torch.empty((B, E), dtype=torch.int64, device=dev)
+    rec_meta.copy_(meta.t())
+    total = (torch.full((B,), E, dtype=torch.int64, device=dev)
+             if ev_n is None else ev_n.long().contiguous())
+    out = _launch(rec_idx, rec_meta, total, C)
     vote_scan.launches += 1
-    return process, target.long() & M32, ovf.sum(dtype=torch.int64)
+    return out
 
 
 vote_scan.launches = 0   # kernel launches since the last reset

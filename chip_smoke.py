@@ -52,7 +52,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    golden output, with the vote kernel launched and no capacity overflow
    left after escalation. Then the filt index: its geno VCF must equal
    golden_filt_output.vcf.
-6. real    -- the benchmark workload (one 48 Mb chromosome, 500,000 SNPs,
+6. mesh   -- both multi-device runners on the mini fixture, golden each
+   time: the replicated-index mesh and the sharded dictionary at D = 1 and
+   D = 2 (D = 2 names cuda:0 twice: it checks the routing and lockstep on
+   one card and is not a deployment), the routed one from route_factor
+   0.05 (must escalate), cohort on D = 2, and a single-device checkpoint
+   resumed on the D = 2 sharded dictionary.
+7. real    -- the benchmark workload (one 48 Mb chromosome, 500,000 SNPs,
    262,144 101 bp reads at err_frac=0.15, seed 20260817) at
    batch_reads=32768 and ht_target_load=0.24. This is the main path of
    the vote kernel, whose launches are counted here. Prints index build /
@@ -66,8 +72,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    vote call (at most 3) and of one forward step are counted with
    torch.profiler, the step in a process of its own, with the vote
    kernel's own time there.
+8. routed -- the same workload, untuned, through the sharded-dictionary
+   runner at D = 1 and D = 2 once the hash-table index is freed: counts
+   equal to the hash-table pass's, no overflow, the vote kernel launched;
+   reads/s, escalations, route_overflow, peak device memory, the index's
+   device bytes; the device operations of one routed forward step (own
+   process); the oracle spot check (2,048 reads through the sequential
+   oracle and the D = 1 runner, all 500,000 sites' counts equal).
 
-The last two lines are a JSON object describing each kernel and the
+A JSON line ``{"mesh": ...}`` carries phase 8's numbers. The last two
+lines are a JSON object describing each kernel and the
 result line ``{"ok": true, "device": {...}}``. The dataset and index are
 cached under ``.smoke_cache/`` next to this file.
 """
@@ -75,6 +89,7 @@ cached under ``.smoke_cache/`` next to this file.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -612,6 +627,92 @@ def phase_golden():
         dix=build_device_index(findex, DEVICE, base.ht_target_load))
 
 
+def phase_mesh():
+    """Both mesh runners on the mini fixture: D = 1 (``make_mesh(1)``) and
+    D = 2 (cuda:0 named twice: a check of the routing and the lockstep on
+    one card, not a deployment), the routed one also from a route_factor
+    of 0.05 (it must escalate), cohort on D = 2, and a single-device
+    checkpoint resumed on the D = 2 sharded-dictionary runner. Each VCF
+    must be byte-identical to golden, with no overflow left and the vote
+    kernel launched (its count set to 0 just before each run and read just
+    after)."""
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import ShardedGenoRunner, make_mesh
+    from vargeno_tpu_torch.engine.cohort import CohortRunner
+    from vargeno_tpu_torch.engine.geno import GenoRunner
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+
+    d = os.path.join(CACHE, "mini")
+    index = store.load(os.path.join(d, "mini"))
+    fq, vcf_in = os.path.join(FIX, "reads.fq"), os.path.join(FIX, "snps.vcf")
+    with open(os.path.join(FIX, "golden_output.vcf")) as f:
+        golden = f.read()
+    base = GenoConfig(batch_reads=512, max_read_len=128,
+                      max_kmers_per_read=4)
+    out = os.path.join(d, "mesh.vcf")
+
+    def mesh_of(D):
+        return make_mesh(1) if D == 1 else make_mesh(devices=["cuda:0"] * D)
+
+    def finish(tag, runner, t0, vcf_path=out):
+        launches = vote_fn.launches
+        with open(vcf_path) as f:
+            if f.read() != golden:
+                raise AssertionError(f"mesh/{tag}: VCF differs from golden")
+        check_no_overflow(runner, f"mesh/{tag}")
+        if launches <= 0:
+            raise AssertionError(f"mesh/{tag}: the vote kernel was never "
+                                 f"launched")
+        log("mesh", f"{tag}: VCF byte-identical to golden; {runner.n_reads} "
+                    f"reads in {time.perf_counter() - t0:.2f} s, vote "
+                    f"launches {launches}, escalations "
+                    f"{runner.n_escalations}, route_overflow "
+                    f"{runner.stats_totals.get('route_overflow', 'n/a')}")
+        return runner
+
+    def run(tag, cls, D, cfg=base):
+        runner = cls(index, mesh_of(D), cfg)
+        vote_fn.launches = 0
+        t0 = time.perf_counter()
+        runner.consume_fastq(fq)
+        runner.write_vcf(vcf_in, out)
+        return finish(tag, runner, t0)
+
+    for D in (1, 2):
+        run(f"replicated index, D = {D}", ShardedGenoRunner, D)
+        run(f"sharded dictionary, D = {D}", ShardedDictGenoRunner, D)
+    tiny = run("sharded dictionary, D = 2, route_factor 0.05",
+               ShardedDictGenoRunner, 2,
+               dataclasses.replace(base, route_factor=0.05,
+                                   auto_retry_max=8))
+    if not (tiny.n_escalations > 0 and tiny._cfg_run.route_factor > 0.05):
+        raise AssertionError("mesh: route_factor 0.05 did not escalate")
+
+    cohort = CohortRunner(index, ["full"], base, mesh=mesh_of(2))
+    vote_fn.launches = 0
+    t0 = time.perf_counter()
+    cohort.consume_sample("full", fq)
+    outs = cohort.write_vcfs(vcf_in, os.path.join(d, "mesh_{sample}.vcf"))
+    finish("cohort on D = 2", cohort._runner, t0, vcf_path=outs[0])
+
+    ck = os.path.join(d, "mesh_ckpt")
+    for ext in (".npz", ".json"):
+        if os.path.exists(ck + ext):
+            os.remove(ck + ext)
+    first = GenoRunner(index, base, device=DEVICE)
+    first.consume_fastq(fq, limit_batches=8, checkpoint_path=ck,
+                        checkpoint_every=4)
+    resumed = ShardedDictGenoRunner(index, mesh_of(2), base)
+    vote_fn.launches = 0
+    t0 = time.perf_counter()
+    resumed.consume_fastq(fq, checkpoint_path=ck)
+    resumed.write_vcf(vcf_in, out)
+    finish(f"single-device checkpoint at {first.n_reads} reads, resumed "
+           f"on the sharded dictionary at D = 2", resumed, t0)
+
+
 def make_dataset(d):
     import numpy as np
 
@@ -649,7 +750,7 @@ def inside_checkout(path: str) -> str:
     return real
 
 
-def step_ops_of(pkg_root: str) -> int:
+def step_ops_of(pkg_root: str, routed: bool = False) -> int:
     """``--step-ops-of DIR``: profile one forward step (single orientation,
     default capacities, the workload's first batch, after one warm-up step)
     of the package in the checkout DIR, on this checkout's cached workload
@@ -659,7 +760,9 @@ def step_ops_of(pkg_root: str) -> int:
     random streams, the (E, B) entry's time between CUDA events round one
     call and the vote kernel's own time inside it. Run in a process of its
     own: a profiler trace taken late in a long process loses device
-    records."""
+    records. ``--routed-step-ops-of DIR``: the same forward step through the
+    sharded-dictionary runner at D = 1 (routed backend, sorted search), the
+    step's operations and times only."""
     sys.path.insert(0, inside_checkout(pkg_root))
     import torch
 
@@ -675,16 +778,27 @@ def step_ops_of(pkg_root: str) -> int:
     fq = os.path.join(d, "reads.fq")
     L, K = autosize_shapes(fq)
     index = store.load(prefix)
-    dix = build_device_index(index, DEVICE, HT_LOAD)
     cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
                      ht_target_load=HT_LOAD)
-    r = GenoRunner(index, cfg, device=DEVICE, dix=dix)
     b = next(iter(iter_read_batches(fq, BATCH, L, K)))
-    args = r._upload(_encoder(K)(b.codes, b.n_kmers), b.qual)
-    proc = r._proc(cfg)
+    enc = _encoder(K)(b.codes, b.n_kmers)
+    if routed:
+        from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+        from vargeno_tpu_torch.dist.sharding import make_mesh
+
+        r = ShardedDictGenoRunner(index, make_mesh(1), cfg)
+        args = r._upload(enc, b.qual)[0]
+        proc = r._proc(cfg)[0]
+        counts = (r.ref_cnt[0], r.alt_cnt[0])
+    else:
+        r = GenoRunner(index, cfg, device=DEVICE,
+                       dix=build_device_index(index, DEVICE, HT_LOAD))
+        args = r._upload(enc, b.qual)
+        proc = r._proc(cfg)
+        counts = (r.ref_cnt, r.alt_cnt)
 
     def step():
-        return proc.single_enc(*args, r.ref_cnt, r.alt_cnt)
+        return proc.single_enc(*args, *counts)
     step()
     torch.cuda.synchronize()
     n, records = device_ops(step)
@@ -695,7 +809,7 @@ def step_ops_of(pkg_root: str) -> int:
                        if len(records) == 2 * n else None),
            "eb_vote_kernel_us": {}, "eb_entry_ms": {}}
     # the (E, B) entry, which every checkout has, on the random streams
-    for E, B, C in VOTE_TIMED:
+    for E, B, C in ([] if routed else VOTE_TIMED):
         quartet, ev_n, _ = random_events(E, B, C, seed=E * 1000 + C)
 
         def entry():
@@ -708,9 +822,10 @@ def step_ops_of(pkg_root: str) -> int:
     return 0
 
 
-def profiled_step(pkg_root: str) -> dict:
+def profiled_step(pkg_root: str, routed: bool = False) -> dict:
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--step-ops-of", pkg_root],
+                        "--routed-step-ops-of" if routed else "--step-ops-of",
+                        pkg_root],
                        capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
         raise RuntimeError(f"profiling the step of {pkg_root} failed:\n"
@@ -919,7 +1034,8 @@ def phase_real(card: str, gather_rates: dict, parent: str | None):
                     f"{json.dumps(mine[key])}; the parent checkout's: "
                     + (json.dumps(theirs[key]) if theirs
                        else "not run (no --parent)"))
-    return dict(build_s=build_s, load_s=load_s, rate=rate,
+    return dict(counts=(rc, ac), dix_bytes=dix.nbytes(),
+                build_s=build_s, load_s=load_s, rate=rate,
                 tuned_rate=tuned_rate, peak=peak, launches=launches,
                 roofline=report, real_raw_ms=real_raw_ms,
                 real_kernel_us=mine["vote_kernel_us"],
@@ -927,10 +1043,137 @@ def phase_real(card: str, gather_rates: dict, parent: str | None):
                 vote_call_ops=vote_ops, step_ops=mine["step_ops"])
 
 
+def phase_routed(card: str, ht: dict) -> dict:
+    """The 48 Mb workload through the sharded-dictionary runner, untuned, at
+    D = 1 and D = 2 (cuda:0 named twice: a check, not a deployment), after
+    the hash-table passes have freed their index: counts equal to the
+    hash-table runner's, no overflow left, the vote kernel launched (count
+    set to 0 just before each pass, read just after); reads/s,
+    escalations, route_overflow, peak device memory (reset before each
+    pass) and the index's device bytes beside the hash-table runner's. Then
+    the device operations of one routed forward step, and the oracle spot
+    check: the first 2,048 reads through the sequential oracle and through
+    the D = 1 runner, every one of the 500,000 sites' counts equal."""
+    import numpy as np
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records
+    from vargeno_tpu_torch.oracle import OracleEngine
+
+    gc.collect()   # the hash-table passes' index, before peaks are taken
+    d, prefix = real_paths()
+    fq = os.path.join(d, "reads.fq")
+    L, K = autosize_shapes(fq)
+    cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
+                     ht_target_load=HT_LOAD)
+    index = store.load(prefix)
+    ht_rc, ht_ac = ht["counts"]
+    out = {}
+    for D in (1, 2):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = make_mesh(1) if D == 1 else make_mesh(devices=["cuda:0"] * D)
+        runner = ShardedDictGenoRunner(index, mesh, cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        vote_scan_records.launches = 0
+        t0 = time.perf_counter()
+        runner.consume_fastq(fq)
+        torch.cuda.synchronize()
+        geno_s = time.perf_counter() - t0
+        launches = vote_scan_records.launches
+        peak = torch.cuda.max_memory_allocated()
+        check_no_overflow(runner, f"routed/D={D}")
+        rc, ac = runner.host_counts()
+        if not (np.array_equal(rc, ht_rc) and np.array_equal(ac, ht_ac)):
+            raise AssertionError(f"routed/D={D}: counts differ from the "
+                                 f"hash-table runner's")
+        if launches <= 0:
+            raise AssertionError(f"routed/D={D}: the vote kernel was never "
+                                 f"launched")
+        shard = runner.shards[0]
+        row_b = (shard.ref_key.element_size()
+                 + 2 * shard.dix.ref_meta.element_size())
+        nbytes = runner.device_bytes()
+        st = runner.stats_totals
+        out[f"D{D}"] = dict(
+            reads_s=runner.n_reads / geno_s, geno_s=geno_s, setup_s=setup_s,
+            escalations=runner.n_escalations,
+            route_overflow=st["route_overflow"],
+            final_route_factor=runner._cfg_run.route_factor,
+            retry_reads=runner.n_retry_reads, vote_launches=launches,
+            peak_bytes=peak, index_bytes=nbytes, ref_row_bytes=row_b)
+        what = " (cuda:0 twice: a check, not a deployment)" if D > 1 else ""
+        log("real", f"[{card}] sharded dictionary, D = {D}{what}"
+                    f": {runner.n_reads} reads in {geno_s:.3f} s = "
+                    f"{runner.n_reads / geno_s:.1f} reads/s (partition + "
+                    f"upload {setup_s:.2f} s excluded); counts equal to the "
+                    f"hash-table runner's; escalations {runner.n_escalations}"
+                    f" (route_factor {cfg.route_factor} -> "
+                    f"{runner._cfg_run.route_factor}), route_overflow left "
+                    f"{st['route_overflow']}, "
+                    f"retry reads {runner.n_retry_reads}, vote launches "
+                    f"{launches}; peak device memory {peak} B; index "
+                    f"{nbytes} B on the card against the hash-table "
+                    f"runner's {ht['dix_bytes']} B; {row_b} B a ref row "
+                    f"(int64 key + meta)")
+        del runner, mesh, shard   # before the next pass's peak is taken
+    torch.cuda.empty_cache()
+
+    routed = profiled_step(ROOT, routed=True)
+    log("real", f"[{card}] one routed forward step at D = 1 "
+                f"(torch.profiler): {routed['step_ops']} device operations, "
+                f"{routed['busy_us']} us on the card in all, vote kernel "
+                f"{routed['vote_kernel_us']} us; the hash-table step: "
+                f"{ht['step_ops']} operations")
+    out["routed_step"] = routed
+
+    # oracle spot check on the first 2,048 reads
+    head = os.path.join(d, "head2048.fq")
+    with open(fq) as f, open(head, "w") as g:
+        for i, line in enumerate(f):
+            if i >= 4 * 2048:
+                break
+            g.write(line)
+    t0 = time.perf_counter()
+    eng = OracleEngine(index)
+    eng.run_fastq(head)
+    oracle_s = time.perf_counter() - t0
+    runner = ShardedDictGenoRunner(index, make_mesh(1),
+                                   dataclasses.replace(cfg, batch_reads=2048))
+    runner.consume_fastq(head)
+    check_no_overflow(runner, "oracle spot check")
+    rc, ac = runner.host_counts()
+    s = index.sites
+    n = s.pos.shape[0]
+    want_r = np.array([eng.pileup[int(p)][4] for p in s.pos])
+    want_a = np.array([eng.pileup[int(p)][5] for p in s.pos])
+    bad = int((np.minimum(rc[:n], cfg.max_cov) != want_r).sum()
+              + (np.minimum(ac[:n], cfg.max_cov) != want_a).sum())
+    if bad or int(want_r.sum() + want_a.sum()) <= 0:
+        raise AssertionError(f"oracle spot check: {bad} count mismatches "
+                             f"over {n} sites (or no counts)")
+    log("real", f"oracle spot check: {runner.n_reads} reads, 0 count "
+                f"mismatches over {n} sites ({int(want_r.sum())} ref and "
+                f"{int(want_a.sum())} alt counts; oracle {oracle_s:.2f} s)")
+    out["oracle"] = dict(reads=runner.n_reads, sites=n, mismatches=bad,
+                         oracle_s=oracle_s)
+    del runner
+    return out
+
+
 def main() -> int:
     argv = sys.argv[1:]
     parent = None
-    if len(argv) == 2 and argv[0] in ("--parent", "--step-ops-of"):
+    if len(argv) == 2 and argv[0] in ("--parent", "--step-ops-of",
+                                      "--routed-step-ops-of"):
         parent = argv[1]
     elif argv:
         print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
@@ -944,8 +1187,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
         return 1
-    if argv and argv[0] == "--step-ops-of":
-        return step_ops_of(parent)
+    if argv and argv[0] in ("--step-ops-of", "--routed-step-ops-of"):
+        return step_ops_of(parent, routed=argv[0] == "--routed-step-ops-of")
     if parent:
         parent = inside_checkout(parent)
     sys.path.insert(0, ROOT)
@@ -981,9 +1224,18 @@ def main() -> int:
     gather_t, gather_err = phase_kernel_gather()
     rates, gather_launches = phase_bench(card)
     phase_golden()
+    phase_mesh()
     real = phase_real(card, rates, parent)
+    routed = phase_routed(card, real)
 
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"mesh": {
+        "card": card, "workload": f"{GENOME_MB} Mb, {N_SNPS} SNPs, "
+                                  f"{N_READS} reads, batch_reads {BATCH}",
+        "hash_table": {"reads_s": real["rate"], "peak_bytes": real["peak"],
+                       "index_bytes": real["dix_bytes"],
+                       "step_ops": real["step_ops"]},
+        **routed}}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
     print(json.dumps({"kernels": [
@@ -991,6 +1243,8 @@ def main() -> int:
          "source": "vargeno_tpu_torch/csrc/vote.cu",
          "replaces": "vargeno_tpu/engine/pallas_vote.py:26",
          "launches": real["launches"], "max_abs_err": vote_err,
+         "routed_launches": {k: routed[k]["vote_launches"]
+                             for k in ("D1", "D2")},
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
          **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
          "ms_before": before["eb_entry_ms"][main_shape] if before else None,

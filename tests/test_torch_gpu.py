@@ -17,7 +17,10 @@ from torch_index_share import small_index as build_small_index
 
 from vargeno_tpu_torch.config import GenoConfig
 from vargeno_tpu_torch.core.kmer import np_encode_batch
+from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+from vargeno_tpu_torch.dist.sharding import ShardedGenoRunner, make_mesh
 from vargeno_tpu_torch.engine import device_index as tdi
+from vargeno_tpu_torch.engine import search
 from vargeno_tpu_torch.engine.batch import make_batch_processor
 from vargeno_tpu_torch.engine.cohort import CohortRunner
 from vargeno_tpu_torch.engine.geno import GenoRunner
@@ -397,3 +400,56 @@ def test_runner_modes_on_cuda_match_cpu(cuda, small_index, tmp_path):
     np.testing.assert_array_equal(a_ac, want[1])
     assert int(cohort.counts["b"][0].sum()) < int(a_rc.sum())
     assert vote_scan_records.launches > before
+
+
+def test_search_on_cuda_matches_cpu(cuda):
+    """The sorted search over int64 keys on the card, queries at the word
+    limits included."""
+    rng = np.random.default_rng(5)
+    k = np.sort(rng.integers(0, 2**63, 100000, dtype=np.uint64) * 2)
+    hi = (k >> np.uint64(32)).astype(np.uint32)
+    lo = (k & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    keys = torch.from_numpy(search.np_okey(hi, lo))
+    qh = torch.from_numpy(rng.integers(0, 2**32, 5000).astype(np.int64))
+    ql = torch.from_numpy(rng.integers(0, 2**32, 5000).astype(np.int64))
+    qh[:2], ql[:2] = 0xFFFFFFFF, 0xFFFFFFFF
+    want = search.lower_bound(keys, qh, ql)
+    got = search.lower_bound(keys.to(cuda), qh.to(cuda), ql.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    end = search.block_end(keys.to(cuda), qh.to(cuda))
+    assert torch.equal(end.cpu(), search.block_end(keys, qh))
+
+
+def test_make_mesh_refuses_more_than_visible_gpus(cuda):
+    n = torch.cuda.device_count()
+    assert make_mesh(n).devices == [torch.device(f"cuda:{i}")
+                                    for i in range(n)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        make_mesh(n + 1)
+
+
+def test_mesh_runners_on_cuda_match_cpu(cuda, small_index):
+    """Both mesh runners at D = 2 on the card (cuda:0 named twice when one
+    card is visible: a check of the routing, not a deployment), the routed
+    one also escalating from a tiny route_factor, count exactly as the CPU
+    GenoRunner, with the vote kernel launched."""
+    base = dict(batch_reads=512, max_read_len=128, max_kmers_per_read=4)
+    fq = os.path.join(FIX, "reads.fq")
+    ref = GenoRunner(small_index, GenoConfig(**base), device="cpu")
+    ref.consume_fastq(fq)
+    want = ref.host_counts()
+    devs = [f"cuda:{i % torch.cuda.device_count()}" for i in range(2)]
+    for cls, kw in ((ShardedGenoRunner, {}), (ShardedDictGenoRunner, {}),
+                    (ShardedDictGenoRunner, dict(route_factor=0.05))):
+        before = vote_scan_records.launches
+        run = cls(small_index, make_mesh(devices=devs),
+                  GenoConfig(**base, **kw))
+        run.consume_fastq(fq)
+        assert vote_scan_records.launches > before
+        got = run.host_counts()
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert not {k: v for k, v in run.stats_totals.items()
+                    if "overflow" in k and v}
+        if kw:
+            assert run._cfg_run.route_factor > kw["route_factor"]

@@ -30,7 +30,9 @@ MODULES = [
     "vargeno_tpu_torch.engine.autotune",
     "vargeno_tpu_torch.engine.checkpoint",
     "vargeno_tpu_torch.engine.cohort", "vargeno_tpu_torch.index.filt",
-    "vargeno_tpu_torch.index.ucsc",
+    "vargeno_tpu_torch.index.ucsc", "vargeno_tpu_torch.engine.search",
+    "vargeno_tpu_torch.dist", "vargeno_tpu_torch.dist.sharding",
+    "vargeno_tpu_torch.dist.sharded_dict", "vargeno_tpu_torch.oracle",
 ]
 
 

@@ -1,19 +1,23 @@
-"""Command line of the PyTorch port (the single-device subcommands of
-``vargeno_tpu/cli.py``):
+"""Command line of the PyTorch port (the subcommands of
+``vargeno_tpu/cli.py`` but multi-host geno):
 
   python -m vargeno_tpu_torch.cli index  <ref.fa> <snps.vcf> <prefix>
   python -m vargeno_tpu_torch.cli geno   <prefix> <reads.fq> <snps.vcf> <out.vcf>
-      [--device cuda|cpu] [--batch-reads N] [--checkpoint PATH]
-      [--limit-batches N] [--metrics PATH] [--no-auto-tune] [--inline-dual]
-      [capacity flags]
+      [--device cuda|cpu] [--mesh N [--sharded-dict]] [--batch-reads N]
+      [--checkpoint PATH] [--limit-batches N] [--metrics PATH]
+      [--no-auto-tune] [--inline-dual] [capacity flags]
   python -m vargeno_tpu_torch.cli cohort <prefix> <snps.vcf> <out_{sample}.vcf>
-      name=reads.fq [name=reads.fq ...] [--device cuda|cpu]
+      name=reads.fq [name=reads.fq ...] [--device cuda|cpu] [--mesh N]
+  python -m vargeno_tpu_torch.cli oracle-geno <prefix> <reads.fq> <snps.vcf> <out.vcf>
+  python -m vargeno_tpu_torch.cli kmerc  <ref.fa>
   python -m vargeno_tpu_torch.cli filt   <prefix> <out_prefix>
   python -m vargeno_tpu_torch.cli vcfd | vcfbf | ucscd | ucscbf | encodebf | help
 
 ``geno`` and ``cohort`` run on the GPU by default and stop with an error
-when there is none; the host runs them only with ``--device cpu``. The
-index-side subcommands are host code.
+when there is none; the host runs them only with ``--device cpu``. ``--mesh
+N`` runs on GPUs 0 .. N-1 and stops with an error when fewer are visible;
+with ``--device cpu`` its N shards all run on the host. The index-side
+subcommands, ``oracle-geno`` and ``kmerc`` are host code.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ def _add_engine_flags(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the batch step (default cuda; "
                         "cpu must be asked for)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="data-parallel over N devices: GPUs 0..N-1, or N "
+                        "host shards with --device cpu (0 = one device)")
     p.add_argument("--batch-reads", type=int, default=32768,
                    help="reads per device batch")
     p.add_argument("--max-read-len", type=int, default=None,
@@ -105,6 +112,10 @@ def _parser():
                    help="forward+reverse of every batch in one step (2x "
                         "device work) instead of the default queued retry "
                         "of failed reads; results are bit-identical")
+    p.add_argument("--sharded-dict", action="store_true",
+                   help="with --mesh: partition the dictionaries across "
+                        "the mesh (all-to-all routed probes, no hash "
+                        "table)")
     _add_engine_flags(p)
 
     p = sub.add_parser("cohort", help="genotype multiple samples")
@@ -122,6 +133,18 @@ def _parser():
     p.add_argument("snp_vcf")
     p.add_argument("ref_dict")
     p.add_argument("snp_dict")
+
+    p = sub.add_parser("kmerc", help="count distinct LO32/LO40 k-mer halves "
+                                     "(BF sizing tool, reference kmerc)")
+    p.add_argument("ref_fasta")
+
+    p = sub.add_parser("oracle-geno",
+                       help="run the sequential oracle engine (debug / "
+                            "bit-parity reference mode)")
+    p.add_argument("prefix")
+    p.add_argument("reads_fq")
+    p.add_argument("snp_vcf")
+    p.add_argument("out_vcf")
 
     p = sub.add_parser("vcfbf", help="build Bloom filters only (gbf vcf)")
     p.add_argument("ref_fasta")
@@ -210,14 +233,39 @@ def _main(argv=None):
             return 1
         from .index import store
 
-    if args.cmd == "geno":
-        from .engine.geno import GenoRunner
+        if args.mesh < 0 or (args.cmd == "geno" and args.sharded_dict
+                             and not args.mesh):
+            print("error: --mesh takes N >= 1 shards (and --sharded-dict "
+                  "needs it)", file=sys.stderr)
+            return 1
+        mesh = None
+        if args.mesh:
+            from .dist.sharding import make_mesh
 
+            try:
+                mesh = make_mesh(args.mesh, devices=(
+                    ["cpu"] * args.mesh
+                    if torch.device(args.device).type == "cpu" else None))
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+
+    if args.cmd == "geno":
         cfg = _config(args, [args.reads_fq])
         index = store.load(args.prefix)
-        runner = GenoRunner(index, cfg, device=args.device,
-                            queued_orientation=not args.inline_dual,
-                            metrics_path=args.metrics)
+        kw = dict(queued_orientation=not args.inline_dual,
+                  metrics_path=args.metrics)
+        if mesh is not None:
+            from .dist.sharded_dict import ShardedDictGenoRunner
+            from .dist.sharding import ShardedGenoRunner
+
+            cls = (ShardedDictGenoRunner if args.sharded_dict
+                   else ShardedGenoRunner)
+            runner = cls(index, mesh, cfg, **kw)
+        else:
+            from .engine.geno import GenoRunner
+
+            runner = GenoRunner(index, cfg, device=args.device, **kw)
         runner.consume_fastq(args.reads_fq,
                              checkpoint_path=args.checkpoint,
                              limit_batches=args.limit_batches)
@@ -238,10 +286,50 @@ def _main(argv=None):
         index = store.load(args.prefix)
         runner = CohortRunner(index, [n for n, _ in pairs],
                               _config(args, [f for _, f in pairs]),
-                              device=args.device)
+                              device=args.device, mesh=mesh)
         for name, fq in pairs:
             runner.consume_sample(name, fq)
         runner.write_vcfs(args.snp_vcf, args.out_pattern)
+        return 0
+
+    if args.cmd == "oracle-geno":
+        import numpy as np
+
+        from .finalize import finalize_calls
+        from .index import store
+        from .io.vcf_writer import write_calls_vcf
+        from .oracle import OracleEngine
+
+        index = store.load(args.prefix)
+        eng = OracleEngine(index)
+        eng.run_fastq(args.reads_fq)
+        s = index.sites
+        rc = np.array([eng.pileup[int(p)][4] for p in s.pos])
+        ac = np.array([eng.pileup[int(p)][5] for p in s.pos])
+        calls = finalize_calls(index.chrlens, s.pos, s.ref, s.alt, s.rf,
+                               s.af, rc, ac, eng.config)
+        write_calls_vcf(args.snp_vcf, args.out_vcf, calls)
+        return 0
+
+    if args.cmd == "kmerc":
+        import numpy as np
+
+        from .core.kmer import np_rolling_kmers_u64, np_window_has_n
+        from .io import fasta as fasta_io
+
+        seqs = fasta_io.parse_fasta(args.ref_fasta)
+        lo32 = set()
+        all40 = []
+        for s in seqs:
+            codes = s.codes_normalized()
+            roll = np_rolling_kmers_u64(codes)
+            ok = ~np_window_has_n(codes)
+            k = roll[ok]
+            lo32.update(np.unique(k & np.uint64(0xFFFFFFFF)).tolist())
+            all40.append(np.unique(k & np.uint64(0xFF_FFFF_FFFF)))
+        n40 = np.unique(np.concatenate(all40)).size if all40 else 0
+        print(f"distinct LO32: {len(lo32)}")
+        print(f"distinct LO40: {n40}")
         return 0
 
     if args.cmd == "vcfd":

@@ -1,6 +1,6 @@
 """Jax-free copy of ``vargeno_tpu/config.py``, holding only the fields the
-port reads (the JAX package's Pallas, dispatch-pipeline and sharding knobs
-come back with the features that read them).
+port reads (the JAX package's Pallas and dispatch-pipeline knobs come back
+with the features that read them).
 
 Runtime configuration of index build and genotyping.
 
@@ -125,6 +125,14 @@ class GenoConfig:
                                    # gather for EVERY query lane); 0.5
                                    # halves the table bytes at chain 2 --
                                    # use it when HBM is the constraint
+
+    # --- distribution ---
+    route_factor: float = 2.2     # sharded-dict mode: per-(src,dst) lane
+                                  # capacity as a multiple of the uniform
+                                  # share (genomic hi bits are near-uniform;
+                                  # overflow is counted and auto-escalated)
+    route_scan_slots: int = 16    # sharded-dict mode: compacted block-scan
+                                  # hits returned per routed query
 
     @property
     def ref_bf_bits(self) -> int:

@@ -145,6 +145,24 @@ class LocalBackend:
     def ref_block_size(self, q_hi):
         return self._ref_block_bounds(q_hi)[1]
 
+    # stride-bug read limits (a test index past them reads as 0, the
+    # reference's fresh-heap model) and the two columns the scans test; a
+    # shard of the sharded dictionary overrides them (its limit is its owned
+    # rows plus the real tail rows, its words come from its search keys)
+    def _ref_limit(self) -> int:
+        return self.dix.n_ref_rows
+
+    def _snp_limit(self) -> int:
+        return self.dix.n_snp_rows
+
+    def _ref_lo(self, idx):
+        return widen(self.dix.ref_lo[idx])
+
+    def _snp_test(self, idx):
+        """(lo, hi & 0xFF) of the snp rows ``idx``."""
+        tst = widen(self.dix.snp_test[idx])                 # (CS, 2)
+        return tst[:, 0], tst[:, 1]
+
     def _scan_lanes(self, NI: int, S: int, active, bsize, which: str):
         """Compact the (item, slot) scan grid to its real test lanes
         (j < block size). Returns (ci, cj, cs, c_ok, spill)."""
@@ -179,7 +197,7 @@ class LocalBackend:
         d = self.dix
         S = self.ref_scan_slots
         NI = q_hi.shape[0]
-        n_ref = d.n_ref_rows   # rows past it read as 0 (stride-bug model)
+        n_ref = self._ref_limit()
         blo, bsize = self._ref_block_bounds(q_hi)
         ci, cj, cs, c_ok, spill = self._scan_lanes(NI, S, active, bsize,
                                                    "ref")
@@ -187,7 +205,7 @@ class LocalBackend:
         stride = 9 if self.stride_bug else 1
         tidx = c_blo + stride * cj
         test_lo = torch.where(c_ok & (tidx < n_ref),
-                              widen(d.ref_lo[tidx.clamp(max=n_ref - 1)]), 0)
+                              self._ref_lo(tidx.clamp(max=n_ref - 1)), 0)
         x = q_lo[ci] ^ test_lo
         k2 = ctz32(x) >> 1
         sh2 = (2 * k2).clamp(max=31)
@@ -207,7 +225,7 @@ class LocalBackend:
         d = self.dix
         S = self.snp_scan_slots
         NI = q_hi.shape[0]
-        n_snp = d.n_snp_rows
+        n_snp = self._snp_limit()
         slo, ssize = self._snp_block_bounds(q_hi >> 8)
         ci, cj, cs, c_ok, spill = self._scan_lanes(NI, S, active, ssize,
                                                    "snp")
@@ -215,9 +233,9 @@ class LocalBackend:
         stride = 11 if self.stride_bug else 1
         tidx = c_slo + stride * cj
         in_dict = c_ok & (tidx < n_snp)
-        tst = widen(d.snp_test[tidx.clamp(max=n_snp - 1)])     # (CS, 2)
-        e_lo = torch.where(in_dict, tst[:, 0], 0)
-        e_hi8 = torch.where(in_dict, tst[:, 1], 0)
+        t_lo, t_hi8 = self._snp_test(tidx.clamp(max=n_snp - 1))
+        e_lo = torch.where(in_dict, t_lo, 0)
+        e_hi8 = torch.where(in_dict, t_hi8, 0)
         c_qhi = q_hi[ci]
         xlo = q_lo[ci] ^ e_lo
         xhi8 = (c_qhi & 0xFF) ^ e_hi8

@@ -83,13 +83,22 @@ class BatchProcessor:
     orientation and ``dual_enc`` both, from pre-encoded (hi, lo) k-mer
     words; ``dual`` encodes base codes on the device first. ``vote`` is the
     vote implementation, called as ``vote_scan_records`` is (the kernel
-    wrapper by default)."""
+    wrapper by default). ``backend_factory(dix)`` makes the step's query
+    backend (``LocalBackend`` over the whole index by default; a shard of
+    the sharded dictionary hands in its routed backend)."""
 
     def __init__(self, dix: TorchDeviceIndex, config: GenoConfig,
-                 vote=vote_scan_records):
+                 vote=vote_scan_records, backend_factory=None):
         cfg = self.cfg = config
         self.dix = dix
         self.vote = vote
+        if backend_factory is None:
+            def backend_factory(dix_t):
+                return LocalBackend(dix_t, cfg.replicate_stride_bug,
+                                    cfg.block_size_threshold,
+                                    cfg.scan_slot_cap, cfg.probe_active_frac,
+                                    cfg.scan_active_frac)
+        self.backend_factory = backend_factory
         self.shapes = _Shapes(
             B=cfg.batch_reads, K=cfg.max_kmers_per_read,
             E=cfg.events_per_read, C=cfg.candidates_per_read,
@@ -104,11 +113,8 @@ class BatchProcessor:
         self.NO_BIG = dix.ref_scan_max < cfg.block_size_threshold
         self.P2 = self.P_SMALL + (0 if self.NO_BIG else 128) + 128
 
-    def _backend(self) -> LocalBackend:
-        cfg = self.cfg
-        return LocalBackend(self.dix, cfg.replicate_stride_bug,
-                            cfg.block_size_threshold, cfg.scan_slot_cap,
-                            cfg.probe_active_frac, cfg.scan_active_frac)
+    def _backend(self):
+        return self.backend_factory(self.dix)
 
     # ------------------------------------------------------------------
     def neighbor_probes(self, be, it_hi, it_lo, it_valid):
@@ -184,9 +190,15 @@ class BatchProcessor:
             act_snp_all = torch.cat([act_bl, act_snp], 1)
             diff_all = torch.cat([bgrid.expand(NI, 64),
                                   bgrid_h.expand(NI, 64)], 1)
-        (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag) = \
-            be.exact_both_sparse(q_hi_all, q_lo_all, act_ref_all,
-                                 act_snp_all)
+        if hasattr(be, "exact_both_sparse"):
+            (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag) = \
+                be.exact_both_sparse(q_hi_all, q_lo_all, act_ref_all,
+                                     act_snp_all)
+        else:   # routed backend: one routed lookup per dictionary
+            r_hit, r_pos, r_flag = be.exact_ref(q_hi_all, q_lo_all,
+                                                act_ref_all)
+            s_hit, s_pos, s_info, s_flag = be.exact_snp(q_hi_all, q_lo_all,
+                                                        act_snp_all)
 
         zero = torch.zeros_like(q_hi_all)
         rows_ref = rows_of(r_pos, q_hi_all, q_lo_all,
@@ -262,8 +274,12 @@ class BatchProcessor:
         cfg = self.cfg
         dev = hi.device
 
-        (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag) = \
-            be.exact_both(hi, lo, kmer_valid)
+        if hasattr(be, "exact_both"):
+            (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag) = \
+                be.exact_both(hi, lo, kmer_valid)
+        else:   # routed backend
+            r_hit, r_pos, r_flag = be.exact_ref(hi, lo, kmer_valid)
+            s_hit, s_pos, s_info, s_flag = be.exact_snp(hi, lo, kmer_valid)
         r_hit = r_hit & kmer_valid
         s_hit = s_hit & kmer_valid
 
@@ -613,16 +629,23 @@ class BatchProcessor:
         return self.dual_enc(*enc, n_kmers, qual, ref_cnt, alt_cnt)
 
 
-def _backend_stats(be: LocalBackend, stats: dict) -> None:
-    """The backend's capacity counter and its real compacted-lane counts
-    (summed / maximized over the step's passes), as the ``act_overflow``
-    and ``*_lanes_max`` stats that escalation and auto-tuning read."""
-    stats["act_overflow"] = be.act_overflow
-    stats["act_lanes_max"] = be.act_lanes
-    stats["ref_scan_lanes_max"] = be.ref_scan_lanes
-    stats["snp_scan_lanes_max"] = be.snp_scan_lanes
+def _backend_stats(be, stats: dict) -> None:
+    """The backend's capacity counters and its real compacted-lane counts
+    (summed / maximized over the step's passes), as the ``*_overflow`` and
+    ``*_lanes_max`` stats that escalation and auto-tuning read; each only
+    where the backend keeps it (the routed backend keeps route_overflow,
+    the local one the rest)."""
+    for attr, key in (("route_overflow", "route_overflow"),
+                      ("act_overflow", "act_overflow"),
+                      ("act_lanes", "act_lanes_max"),
+                      ("ref_scan_lanes", "ref_scan_lanes_max"),
+                      ("snp_scan_lanes", "snp_scan_lanes_max")):
+        v = getattr(be, attr, None)
+        if v is not None:
+            stats[key] = v
 
 
 def make_batch_processor(dix: TorchDeviceIndex, config: GenoConfig,
-                         vote=vote_scan_records) -> BatchProcessor:
-    return BatchProcessor(dix, config, vote)
+                         vote=vote_scan_records,
+                         backend_factory=None) -> BatchProcessor:
+    return BatchProcessor(dix, config, vote, backend_factory)

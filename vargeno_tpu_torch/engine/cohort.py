@@ -1,11 +1,12 @@
 """Multi-sample cohort genotyping: N donors against one device-resident
-index (port of ``vargeno_tpu/engine/cohort.py`` without the mesh mode).
+index (port of ``vargeno_tpu/engine/cohort.py``).
 
 No reference equivalent (the reference genotypes one FASTQ per run): the
 index, its device tables and the runner's tuned / escalated step are built
-once, each sample streams through the same GenoRunner with its own pileup
-accumulators, and per-sample VCFs are written at the end. Per-sample
-outputs are byte-identical to N single runs because per-SNP counts are
+once, each sample streams through the same GenoRunner (or, with ``mesh``,
+the data-parallel ShardedGenoRunner) with its own pileup accumulators, and
+per-sample VCFs are written at the end. Per-sample outputs are
+byte-identical to N single runs because per-SNP counts are
 order-independent saturating sums.
 """
 
@@ -27,10 +28,17 @@ class CohortRunner:
     def __init__(self, index: store.VarGenoIndex,
                  sample_names: Sequence[str],
                  config: GenoConfig = DEFAULT_CONFIG,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
+        """``mesh`` (a ``dist.sharding.Mesh``): stream every sample
+        data-parallel over its devices; ``device`` is then unused."""
         self.index = index
         self.config = config
-        self._runner = GenoRunner(index, config, device=device)
+        if mesh is not None:
+            from ..dist.sharding import ShardedGenoRunner
+
+            self._runner = ShardedGenoRunner(index, mesh, config)
+        else:
+            self._runner = GenoRunner(index, config, device=device)
         # None until consumed
         self.counts: Dict[str, Optional[tuple]] = {
             name: None for name in sample_names}

@@ -182,10 +182,15 @@ class _DerivedCache:
             pass  # cache is best-effort (read-only index dir, disk full)
 
 
-def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5):
+def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5,
+                tables: bool = True):
     """The engine's host tables, as the JAX package's
     ``build_device_index(index, host_only=True)`` derives them (without the
-    retired prefilter). Returns (fields: name -> numpy, statics: dict)."""
+    retired prefilter). Returns (fields: name -> numpy, statics: dict);
+    ``fields`` also holds the padded ``snp_hi`` words, which no device
+    table keeps. ``tables=False`` (the sharded dictionary, which searches
+    its sorted rows) builds no hash table, jumpgate or window table: those
+    fields are empty and their statics 0."""
     sites = index.sites
 
     max_pos = int(index.ref.pos[index.ref.flag == 0].max(initial=0))
@@ -246,7 +251,10 @@ def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5):
                           n_snp=int(snp_hi.shape[0]))
     tag = ("%g" % ht_target_load).replace(".", "p")
     ht_name = f"both_ht_{tag}"
-    if cache.has(ht_name, f"both_nb_{tag}", f"both_chain_{tag}"):
+    if not tables:
+        both_tab = HostHashTable(table=np.zeros((0, 128), np.uint32), nb=0,
+                                 chain=0)
+    elif cache.has(ht_name, f"both_nb_{tag}", f"both_chain_{tag}"):
         both_tab = HostHashTable(table=cache.load(ht_name),
                                  nb=cache.meta[f"both_nb_{tag}"],
                                  chain=cache.meta[f"both_chain_{tag}"])
@@ -277,8 +285,17 @@ def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5):
     n_ref_rows = int(ref_hi.shape[0])
     n_snp_rows = int(snp_hi.shape[0])
 
-    if cache.has("ref_jg", "snp_jg", "ref_win_rows", "ref_scan_max",
-                 "snp_scan_max"):
+    if not tables:
+        ref_jg = snp_jg = np.zeros(0, np.uint32)
+        ref_win_rows = 0
+        if cache.has("ref_scan_max", "snp_scan_max"):
+            ref_scan_max = cache.meta["ref_scan_max"]
+            snp_scan_max = cache.meta["snp_scan_max"]
+        else:   # the jumpgates' block maxima, without the jumpgates
+            ref_scan_max = max_run(ref_hi)
+            snp_scan_max = max_run(snp_hi >> np.uint32(8))
+    elif cache.has("ref_jg", "snp_jg", "ref_win_rows", "ref_scan_max",
+                   "snp_scan_max"):
         ref_jg = cache.load("ref_jg")
         snp_jg = cache.load("snp_jg")
         ref_win_rows = cache.meta["ref_win_rows"]
@@ -328,7 +345,8 @@ def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5):
         ref_hi=ref_hi, ref_lo=ref_lo, ref_meta=ref_meta, aux_all=aux_all,
         snp_meta=snp_meta, snp_test=snp_test,
         ref_bf=index.ref_bf.as_u32(), snp_bf=index.snp_bf.as_u32(),
-        site_bitmap=bitmap, site_dir=site_dir, site_ra=site_ra)
+        site_bitmap=bitmap, site_dir=site_dir, site_ra=site_ra,
+        snp_hi=snp_hi)
     statics = dict(
         snp_bf_bits=index.snp_bf.bits, ref_bf_bits=index.ref_bf.bits,
         n_ref_aux=int(ref_aux_a.shape[0]),

@@ -79,6 +79,10 @@ def _escalate_config(cfg: GenoConfig, tripped) -> GenoConfig:
         elif base == "snp_scan_overflow":
             bump("scan_slot_cap", cfg.block_size_threshold)
             bump("scan_active_frac", 1.0)
+            # the routed backend folds its scan-route truncation into the
+            # same key: bump its caps too (inert on a local backend)
+            bump("route_scan_slots", cfg.block_size_threshold)
+            bump("route_factor", 64.0)
         elif base == "agree_overflow":
             bump("agree_cap")
         elif base == "act_overflow":
@@ -87,6 +91,9 @@ def _escalate_config(cfg: GenoConfig, tripped) -> GenoConfig:
             bump("sparse_events_frac", 1.0)
         elif base == "site_slot_overflow":
             bump("sites_per_context", 32)
+        elif base == "route_overflow":
+            # sharded dictionary: the per-(src, dst) routing lane cap
+            bump("route_factor", 64.0)
     if not upd:
         return cfg
     return dataclasses.replace(cfg, **upd)
@@ -122,6 +129,70 @@ def _bits(mask: torch.Tensor) -> torch.Tensor:
 def _unbits(words: np.ndarray, n: int) -> np.ndarray:
     full = (words[:, None] >> np.arange(32)) & 1
     return full.reshape(-1)[:n].astype(bool)
+
+
+def upload(dev, enc, qual, n_kmers=None) -> list:
+    """A pre-encoded host batch as the step's arguments on ``dev``: (hi,
+    lo) as int64 words, the masks, [n_kmers,] qual."""
+    hi, lo, kv, rok = enc
+
+    def words(a):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+        return t.to(dev).long() & M32
+
+    args = [words(hi), words(lo), torch.from_numpy(kv).to(dev),
+            torch.from_numpy(rok).to(dev)]
+    if n_kmers is not None:   # the dual step derives the reverse pass
+        args.append(torch.from_numpy(np.ascontiguousarray(n_kmers)).to(dev))
+    args.append(torch.from_numpy(np.ascontiguousarray(qual)).to(dev))
+    return args
+
+
+def step_vec(proc, args, dual: bool, ref_cnt, alt_cnt):
+    """Dispatch one step; returns (ref_cnt, alt_cnt, stat keys, vec) with
+    the stats and -- single orientation -- the (process, read_ok) bit words
+    packed into ONE device vector, so a batch syncs the host once."""
+    if dual:
+        rc, ac, stats = proc.dual_enc(*args, ref_cnt, alt_cnt)
+        masks = []
+    else:
+        rc, ac, process, read_ok, stats = proc.single_enc(*args, ref_cnt,
+                                                          alt_cnt)
+        masks = [_bits(process), _bits(read_ok)]
+    keys = sorted(stats)
+    return rc, ac, keys, torch.cat([torch.stack([stats[k] for k in keys])]
+                                   + masks)
+
+
+def fetch(vecs) -> list:
+    """Device vectors -> numpy, with one pinned non-blocking copy each and
+    one wait per device."""
+    hosts, done = [], {}
+    for v in vecs:
+        if v.device.type != "cuda":
+            hosts.append(v)
+            continue
+        h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        h.copy_(v, non_blocking=True)
+        hosts.append(h)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(v.device))
+        done[v.device] = ev
+    for ev in done.values():
+        ev.synchronize()
+    return [h.numpy() for h in hosts]
+
+
+def unpack_vec(vals: np.ndarray, keys, B: Optional[int]):
+    """(stats row, masks) of a fetched step vector; masks = the (process,
+    read_ok) bool arrays of a single-orientation step of B reads, else
+    None."""
+    srow = dict(zip(keys, vals[:len(keys)].tolist()))
+    if B is None:
+        return srow, None
+    nw = (B + 31) // 32
+    bits = vals[len(keys):]
+    return srow, (_unbits(bits[:nw], B), _unbits(bits[nw:], B))
 
 
 def _encoder(K: int):
@@ -179,6 +250,14 @@ class GenoRunner:
                                                            self.vote)
         return proc
 
+    # --- hooks a mesh runner overrides (dist.sharding): the reads of one
+    # host-loop batch, the count layout, and how one attempt of a batch is
+    # dispatched and synced ---
+
+    def _loop_batch(self) -> int:
+        """Reads per host-loop batch (a mesh runner's is D x batch)."""
+        return self.config.batch_reads
+
     def _fresh_counts(self):
         """Zeroed pileup accumulators on this runner's device."""
         z = torch.zeros(self.dix.n_sites + 1, dtype=torch.int32,
@@ -191,32 +270,19 @@ class GenoRunner:
         self.alt_cnt = torch.from_numpy(
             np.ascontiguousarray(ac, np.int32)).to(self.device)
 
-    def _fetch(self, vec: torch.Tensor) -> np.ndarray:
-        """The batch's one device-to-host sync."""
-        if vec.device.type != "cuda":
-            return vec.numpy()
-        host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
-        host.copy_(vec, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-        return host.numpy()
-
     def _upload(self, enc, qual, n_kmers=None):
-        hi, lo, kv, rok = enc
-        dev = self.device
+        return upload(self.device, enc, qual, n_kmers)
 
-        def words(a):
-            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-            return t.to(dev).long() & M32
-
-        args = [words(hi), words(lo), torch.from_numpy(kv).to(dev),
-                torch.from_numpy(rok).to(dev)]
-        if n_kmers is not None:   # the dual step derives the reverse pass
-            args.append(torch.from_numpy(
-                np.ascontiguousarray(n_kmers)).to(dev))
-        args.append(torch.from_numpy(np.ascontiguousarray(qual)).to(dev))
-        return args
+    def _attempt(self, proc, args, dual: bool):
+        """Dispatch one attempt of a batch and sync its one packed vector.
+        Returns (ref_cnt, alt_cnt, stats, tune_stats, masks): the new
+        totals, the stats row, the values auto-tune reads, and the host
+        (process, read_ok) masks (None for the dual step)."""
+        rc, ac, keys, vec = step_vec(proc, args, dual, self.ref_cnt,
+                                     self.alt_cnt)
+        srow, masks = unpack_vec(fetch([vec])[0], keys,
+                                 None if dual else args[0].shape[0])
+        return rc, ac, srow, srow, masks
 
     def run_batch(self, enc, qual, n_kmers=None):
         """Run one pre-encoded batch to an overflow-free (or retry-capped)
@@ -226,22 +292,10 @@ class GenoRunner:
         the dual step, which returns None."""
         dual = n_kmers is not None
         args = self._upload(enc, qual, n_kmers)
-        B = args[0].shape[0]
         rounds = 0
         while True:
-            proc = self._proc(self._cfg_run)
-            if dual:
-                rc, ac, stats = proc.dual_enc(*args, self.ref_cnt,
-                                              self.alt_cnt)
-                masks = []
-            else:
-                rc, ac, process, read_ok, stats = proc.single_enc(
-                    *args, self.ref_cnt, self.alt_cnt)
-                masks = [_bits(process), _bits(read_ok)]
-            keys = sorted(stats)
-            vals = self._fetch(
-                torch.cat([torch.stack([stats[k] for k in keys])] + masks))
-            srow = dict(zip(keys, vals[:len(keys)].tolist()))
+            rc, ac, srow, tune, masks = self._attempt(
+                self._proc(self._cfg_run), args, dual)
             tripped = [k for k, v in srow.items() if "overflow" in k and v]
             if not tripped or rounds >= self.config.auto_retry_max:
                 break
@@ -254,12 +308,8 @@ class GenoRunner:
         self.ref_cnt, self.alt_cnt = rc, ac
         self._bump(srow)
         if not self._tuned:
-            self._maybe_tune(srow)
-        if dual:
-            return None
-        nw = (B + 31) // 32
-        bits = vals[len(keys):]
-        return _unbits(bits[:nw], B), _unbits(bits[nw:], B)
+            self._maybe_tune(tune)
+        return masks
 
     def _bump(self, stats):
         for k, v in stats.items():
@@ -322,7 +372,7 @@ class GenoRunner:
         encode = _encoder(cfg.max_kmers_per_read)
 
         def produce():
-            for b in iter_read_batches(fastq_path, cfg.batch_reads,
+            for b in iter_read_batches(fastq_path, self._loop_batch(),
                                        cfg.max_read_len,
                                        cfg.max_kmers_per_read,
                                        skip_reads=skip):
@@ -348,7 +398,7 @@ class GenoRunner:
 
     def _consume_queued(self, fastq_path, skip, limit_batches,
                         checkpoint_path, checkpoint_every):
-        B = self.config.batch_reads
+        B = self._loop_batch()
         batches, encode = self._batches(fastq_path, skip)
         pend: list = []     # queued (codes, nk, qual) reverse complements
         pend_n = 0

@@ -43,6 +43,7 @@ loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -51,6 +52,8 @@ from . import _build
 
 _INTS = (torch.int32, torch.int64)
 NB_FLAG, VALID_FLAG = 1 << 5, 1 << 6   # meta = k | isnb<<5 | valid<<6 | ...
+_count_lock = threading.Lock()   # the sharded runner's shards launch from
+                                 # threads of their own
 
 
 def _bind(lib) -> None:
@@ -229,7 +232,8 @@ def vote_scan_records(ev_idx, ev_meta, ev_total, C: int):
     if B == 1 or E <= 1:   # strides torch leaves free: make them plain
         ev_idx, ev_meta = ev_idx.contiguous(), ev_meta.contiguous()
     out = _launch(ev_idx, ev_meta, ev_total, C)
-    vote_scan_records.launches += 1
+    with _count_lock:
+        vote_scan_records.launches += 1
     return out
 
 

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR | --all-cards]
+
+``--all-cards`` runs only the build and phase ``cards`` (below) on every
+visible card (2 or more).
 
 ``--parent DIR`` names a checkout of an earlier commit of this repository,
 unpacked into a directory inside this one (``git archive <commit> | tar -x
@@ -48,10 +51,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    auto-tune on (it must fire); stopped after 8 batches with a checkpoint
    every 4 and resumed by a second runner; as the first sample of a
    two-sample cohort (whose second sample stops after 2 batches and must
-   differ). Each VCF must be byte-identical to the reference binary's
-   golden output, with the vote kernel launched and no capacity overflow
-   left after escalation. Then the filt index: its geno VCF must equal
-   golden_filt_output.vcf.
+   differ); the long-read fixture (101 to 992 bases) at the shapes the CLI
+   picks from a FASTQ peek, against golden_long_output.vcf. Each VCF must
+   be byte-identical to the reference binary's golden output, with the
+   vote kernel launched and no capacity overflow left after escalation.
+   Then the filt index: its geno VCF must equal golden_filt_output.vcf.
 6. mesh   -- both multi-device runners on the mini fixture, golden each
    time: the replicated-index mesh and the sharded dictionary at D = 1 and
    D = 2 (D = 2 names cuda:0 twice: it checks the routing and lockstep on
@@ -79,8 +83,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    device bytes; the device operations of one routed forward step (own
    process); the oracle spot check (2,048 reads through the sequential
    oracle and the D = 1 runner, all 500,000 sites' counts equal).
+9. multihost -- multi-process geno (dist/multihost.py), each process a
+   fresh interpreter (``--mh-worker``), each cluster under its own time
+   limit: the mini runs (data-parallel queued, inline dual, sharded
+   dictionary, forced escalation, a checkpoint stop) on 2 processes naming
+   cuda:0 over gloo and on 1 process over nccl, golden each, the 2-process
+   checkpoint resumed by a single-process runner; then the 48 Mb workload
+   through the 2-process sharded dictionary on cuda:0 over gloo, its VCF
+   equal to the hash-table pass's; vote launches, peak device memory and
+   index bytes per process. Two processes on one card check the protocol
+   and a shard's memory; they are not a deployment.
 
-A JSON line ``{"mesh": ...}`` carries phase 8's numbers. The last two
+A JSON line ``{"mesh": ...}`` carries phase 8's and phase 9's numbers.
+
+cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
+   runner (the second warm), every VCF equal to the one-card hash-table
+   pass's: one process driving every card (replicated index: the shard
+   steps in turn from one thread; sharded dictionary: a thread a shard)
+   against one process a card (replicated index over nccl; sharded
+   dictionary over nccl and over gloo). Prints a ``{"cards": ...}`` line. The last two
 lines are a JSON object describing each kernel and the
 result line ``{"ok": true, "device": {...}}``. The dataset and index are
 cached under ``.smoke_cache/`` next to this file.
@@ -137,7 +158,7 @@ def card_line() -> str:
                        capture_output=True, text=True, timeout=60)
     if r.returncode != 0:
         raise RuntimeError("nvidia-smi failed: " + r.stderr)
-    return r.stdout.strip().splitlines()[0]
+    return "; ".join(r.stdout.strip().splitlines())
 
 
 # ----------------------------------------------------------------------
@@ -531,6 +552,7 @@ def phase_golden():
     from vargeno_tpu_torch.engine.device_index import build_device_index
     from vargeno_tpu_torch.engine.geno import GenoRunner
     from vargeno_tpu_torch.index import filt, store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes
     from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
 
     d = os.path.join(CACHE, "mini")
@@ -561,11 +583,11 @@ def phase_golden():
                       f"{runner.n_reads} reads in {dt:.2f} s, vote launches "
                       f"{launches}, escalations {runner.n_escalations}")
 
-    def run(tag, cfg, golden, index=index, dix=dix, **runner_kw):
+    def run(tag, cfg, golden, index=index, dix=dix, reads=fq, **runner_kw):
         runner = GenoRunner(index, cfg, device=DEVICE, dix=dix, **runner_kw)
         before = vote_fn.launches
         t0 = time.perf_counter()
-        runner.consume_fastq(fq)
+        runner.consume_fastq(reads)
         runner.write_vcf(vcf_in, out)
         check(tag, runner, vote_fn.launches - before,
               time.perf_counter() - t0, golden)
@@ -582,6 +604,14 @@ def phase_golden():
         raise AssertionError("golden: auto-tune did not fire")
     log("golden", f"auto-tune fired: E {base.events_per_read} -> "
                   f"{tuned._cfg_run.events_per_read}")
+
+    # long reads (101 to 992 bases) at the shapes the CLI picks from a
+    # FASTQ peek
+    long_fq = os.path.join(FIX, "reads_long.fq")
+    L, K = autosize_shapes(long_fq)
+    run(f"long reads, auto-sized (L, K) = {(L, K)}", dataclasses.replace(
+        base, max_read_len=L, max_kmers_per_read=K),
+        read("golden_long_output.vcf"), reads=long_fq)
 
     # stop after 8 batches with a checkpoint every 4; a second runner resumes
     ck = os.path.join(d, "ckpt")
@@ -1169,14 +1199,462 @@ def phase_routed(card: str, ht: dict) -> dict:
     return out
 
 
+def mh_worker(spec: dict) -> int:
+    """``--mh-worker SPEC``: one process of a multi-process cluster. Joins
+    the group (``spec``: port, world, rank, backend, devices), loads the
+    index once, and for each run in ``spec["runs"]`` builds the
+    multi-process runner, drives ``consume_fastq`` (the vote kernel's
+    count set to 0 just before, read just after; the processes start it
+    together after a barrier) and ``write_vcf``, and prints one JSON line
+    ``{"mh_run": ...}`` with what this process saw."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist import multihost
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+
+    cluster = multihost.initialize(f"tcp://localhost:{spec['port']}",
+                                   spec["world"], spec["rank"],
+                                   spec["backend"], timeout=spec["timeout"])
+    mesh = multihost.ProcessMesh(cluster, spec["devices"])
+    index = store.load(spec["prefix"])
+    for run in spec["runs"]:
+        cls = (multihost.MultiHostDictGenoRunner if run["dict"]
+               else multihost.MultiHostGenoRunner)
+        cfg = GenoConfig(**{**spec["config"], **run.get("cfg", {})})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(mesh.devices[0])
+        t0 = time.perf_counter()
+        runner = cls(index, mesh, cfg, queued_orientation=run["queued"])
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        pass_s = []
+        for k in range(run.get("passes", 1)):
+            multihost.barrier(cluster)
+            vote_fn.launches = 0
+            t0 = time.perf_counter()
+            runner.consume_fastq(spec["fq"],
+                                 checkpoint_path=run.get("checkpoint"),
+                                 limit_batches=run.get("limit"))
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+            if k:
+                continue   # a later pass is timed only (counts add up)
+            got = dict(
+                tag=run["tag"], rank=cluster.rank, world=cluster.size,
+                backend=cluster.backend, shards=runner.D,
+                reads=runner.n_reads, geno_s=pass_s[0], setup_s=setup_s,
+                vote_launches=vote_fn.launches,
+                escalations=runner.n_escalations,
+                batches=runner.meter.batches,
+                retry_batches=runner.n_retry_batches,
+                retry_reads=runner.n_retry_reads,
+                overflow={key: v for key, v in runner.stats_totals.items()
+                          if "overflow" in key and v})
+            runner.write_vcf(spec["vcf_in"], run["out"])
+        got.update(pass_s=pass_s, index_bytes=runner.device_bytes(),
+                   peak_bytes=torch.cuda.max_memory_allocated(
+                       mesh.devices[0]))
+        print(json.dumps({"mh_run": got}), flush=True)
+        del runner
+    multihost.shutdown(cluster)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_cluster(name: str, backend: str, devices, common):
+    """Start one worker process (a fresh interpreter) a rank, rank r on
+    the devices ``devices[r]``; returns (name, processes)."""
+    port = free_port()
+    procs = []
+    for rank, devs in enumerate(devices):
+        spec = dict(common, port=port, world=len(devices), rank=rank,
+                    backend=backend, devices=devs)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mh-worker",
+             json.dumps(spec)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return name, procs
+
+
+def finish_cluster(cluster, timeout: float) -> dict:
+    """Wait for a cluster's processes (all killed once ``timeout`` has
+    passed); any failed process fails the phase. Returns {tag: [the run's
+    line of each rank]}."""
+    name, procs = cluster
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"multihost/{name}: the cluster did not finish "
+                           f"within {timeout} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise RuntimeError(f"multihost/{name}: processes (rank, exit code) "
+                           f"{bad} failed:\n" + "\n".join(
+                               err[-3000:] for _, err in outs))
+    runs: dict = {}
+    for out, _ in outs:
+        for line in out.splitlines():
+            if line.startswith('{"mh_run"'):
+                got = json.loads(line)["mh_run"]
+                runs.setdefault(got["tag"], []).append(got)
+    return runs
+
+
+def phase_multihost(card: str, routed: dict) -> dict:
+    """Multi-process geno (``dist/multihost.py``) in fresh interpreters,
+    each cluster under its own time limit; a failed process fails the
+    phase. (a) The mini fixture on 2 processes x 1 shard, both naming
+    cuda:0, over gloo (NCCL takes one process a card): data-parallel
+    queued, inline dual, sharded dictionary, forced escalation, and a
+    run stopped after 3 batches with a checkpoint that a single-process
+    runner of the port resumes. (b) The same runs on one process at world
+    size 1 over nccl (the stopped run resumed on it). Each VCF is
+    byte-identical to golden, with no overflow left and the vote kernel
+    launched in every process. (c) The 48 Mb workload, untuned, through the
+    multi-process sharded dictionary on 2 processes on cuda:0 over gloo:
+    its VCF byte-identical to the single-process hash-table pass's, no
+    overflow, the vote kernel launched in each process; reads/s, each
+    process's peak device memory and index bytes on the card, escalations
+    and retry against forward batches, beside the threaded D = 2 rate of
+    the routed phase. Two processes on one card check the protocol and the
+    memory of a shard; they are not a deployment."""
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.engine.geno import GenoRunner
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = os.path.join(CACHE, "mini")
+    prefix = os.path.join(d, "mini")
+    fq, vcf_in = os.path.join(FIX, "reads.fq"), os.path.join(FIX, "snps.vcf")
+    with open(os.path.join(FIX, "golden_output.vcf")) as f:
+        golden = f.read()
+    base = dict(batch_reads=512, max_read_len=128, max_kmers_per_read=4)
+    tiny = dict(events_per_read=4, probe_hit_cap=2, agree_cap=1)
+
+    def mini_runs(tag, ck, resume):
+        for ext in (".npz", ".json"):
+            if os.path.exists(ck + ext):
+                os.remove(ck + ext)
+        runs = [dict(tag="queued", dict=False, queued=True),
+                dict(tag="inline dual", dict=False, queued=False),
+                dict(tag="sharded dictionary", dict=True, queued=True),
+                dict(tag="forced escalation", dict=False, queued=True,
+                     cfg=tiny),
+                dict(tag="stopped at 3 batches", dict=False, queued=True,
+                     checkpoint=ck, limit=3)]
+        if resume:
+            runs.append(dict(tag="resumed", dict=False, queued=True,
+                             checkpoint=ck))
+        for r in runs:
+            r["out"] = os.path.join(d, f"mh_{tag}_{r['tag'].replace(' ', '_')}"
+                                       f".vcf")
+        return dict(prefix=prefix, fq=fq, vcf_in=vcf_in, config=base,
+                    timeout=300, runs=runs)
+
+    def check(name, runs, spec, world):
+        for run in spec["runs"]:
+            got = runs.get(run["tag"], [])
+            if len(got) != world:
+                raise AssertionError(f"multihost/{name}/{run['tag']}: "
+                                     f"{len(got)} of {world} processes "
+                                     f"reported")
+            with open(run["out"]) as f:
+                same = f.read() == golden
+            if same == (run.get("limit") is not None):
+                raise AssertionError(f"multihost/{name}/{run['tag']}: VCF "
+                                     + ("equals" if same else "differs from")
+                                     + " golden")
+            for g in got:
+                if g["overflow"] or g["vote_launches"] <= 0:
+                    raise AssertionError(f"multihost/{name}/{run['tag']}: "
+                                         f"rank {g['rank']}: {g}")
+            if run["tag"] == "forced escalation" and not all(
+                    g["escalations"] > 0 for g in got):
+                raise AssertionError(f"multihost/{name}: the tiny caps did "
+                                     f"not escalate")
+            log("multihost", f"{name}, {run['tag']}: "
+                + ("VCF byte-identical to golden" if same else
+                   f"stopped at {got[0]['reads']} reads")
+                + f"; vote launches per process "
+                f"{[g['vote_launches'] for g in got]}, escalations "
+                f"{got[0]['escalations']}, batches {got[0]['batches']} "
+                f"({got[0]['retry_batches']} lockstep retry)")
+
+    t0 = time.perf_counter()
+    spec_a = mini_runs("gloo2", os.path.join(d, "mh_ck_a"), resume=False)
+    spec_b = mini_runs("nccl1", os.path.join(d, "mh_ck_b"), resume=True)
+    a = start_cluster("2 processes on cuda:0 over gloo", "gloo",
+                      [["cuda:0"]] * 2, spec_a)
+    b = start_cluster("1 process over nccl", "nccl", [["cuda:0"]], spec_b)
+    runs_a, runs_b = finish_cluster(a, 600), finish_cluster(b, 600)
+    check(a[0], runs_a, spec_a, 2)
+    check(b[0], runs_b, spec_b, 1)
+
+    # the 2-process checkpoint, resumed by the single-process runner
+    index = store.load(prefix)
+    resumed = GenoRunner(index, GenoConfig(**base), device=DEVICE)
+    resumed.consume_fastq(fq, checkpoint_path=os.path.join(d, "mh_ck_a"))
+    out = os.path.join(d, "mh_resumed_single.vcf")
+    resumed.write_vcf(vcf_in, out)
+    with open(out) as f:
+        if f.read() != golden:
+            raise AssertionError("multihost: the single-process runner's "
+                                 "resume of the 2-process checkpoint "
+                                 "differs from golden")
+    check_no_overflow(resumed, "multihost/resumed")
+    del resumed, index
+    log("multihost", f"the 2-process checkpoint resumed by a single-process "
+                     f"runner: VCF byte-identical to golden; mini clusters "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) the 48 Mb workload, 2 processes on one card
+    rd, rprefix = real_paths()
+    rfq = os.path.join(rd, "reads.fq")
+    L, K = autosize_shapes(rfq)
+    out = os.path.join(rd, "mh_out.vcf")
+    spec_c = dict(prefix=rprefix, fq=rfq, vcf_in=os.path.join(rd,
+                                                              "snps.vcf"),
+                  config=dict(batch_reads=BATCH, max_read_len=L,
+                              max_kmers_per_read=K, ht_target_load=HT_LOAD),
+                  timeout=300, runs=[dict(tag="48 Mb", dict=True,
+                                          queued=True, out=out)])
+    t0 = time.perf_counter()
+    c = start_cluster("48 Mb, 2 processes on cuda:0 over gloo", "gloo",
+                      [["cuda:0"]] * 2, spec_c)
+    got = finish_cluster(c, 900).get("48 Mb", [])
+    wall_s = time.perf_counter() - t0
+    if len(got) != 2:
+        raise AssertionError(f"multihost/48 Mb: {len(got)} of 2 processes "
+                             f"reported")
+    with open(out) as f, open(os.path.join(rd, "out.vcf")) as g:
+        if f.read() != g.read():
+            raise AssertionError("multihost/48 Mb: the 2-process VCF differs "
+                                 "from the single-process hash-table "
+                                 "pass's")
+    for g in got:
+        if g["overflow"] or g["vote_launches"] <= 0:
+            raise AssertionError(f"multihost/48 Mb: rank {g['rank']}: {g}")
+    geno_s = max(g["geno_s"] for g in got)
+    reads = got[0]["reads"]
+    fwd = got[0]["batches"] - got[0]["retry_batches"]
+    d2 = routed["D2"]["reads_s"]
+    log("multihost", f"[{card}] 48 Mb through the multi-process sharded "
+                     f"dictionary, 2 processes x 1 shard on cuda:0 over gloo "
+                     f"(a check of the protocol and a shard's memory, not a "
+                     f"deployment): VCF byte-identical to the single-process "
+                     f"hash-table pass's; {reads} reads in {geno_s:.3f} s = "
+                     f"{reads / geno_s:.1f} reads/s (the slower process's "
+                     f"consume_fastq; partition + upload excluded), against "
+                     f"{d2:.1f} reads/s for the threaded D = 2 pass of the "
+                     f"routed phase in this run; escalations "
+                     f"{got[0]['escalations']}; {fwd} forward + "
+                     f"{got[0]['retry_batches']} lockstep retry batches; per "
+                     f"process: vote launches "
+                     f"{[g['vote_launches'] for g in got]}, peak device "
+                     f"memory {[g['peak_bytes'] for g in got]} B, index "
+                     f"{[g['index_bytes'] for g in got]} B on the card, "
+                     f"setup {[round(g['setup_s'], 2) for g in got]} s; "
+                     f"cluster wall {wall_s:.1f} s")
+    return dict(
+        mini={"gloo_2x1": {t: [g["vote_launches"] for g in v]
+                           for t, v in runs_a.items()},
+              "nccl_1x1": {t: [g["vote_launches"] for g in v]
+                           for t, v in runs_b.items()}},
+        mb48=dict(reads_s=reads / geno_s, geno_s=geno_s,
+                  threaded_d2_reads_s=d2, forward_batches=fwd,
+                  retry_batches=got[0]["retry_batches"],
+                  escalations=got[0]["escalations"],
+                  vote_launches=[g["vote_launches"] for g in got],
+                  peak_bytes=[g["peak_bytes"] for g in got],
+                  index_bytes=[g["index_bytes"] for g in got],
+                  setup_s=[g["setup_s"] for g in got]))
+
+
+def phase_cards(card: str) -> dict:
+    """``--all-cards``: the 48 Mb workload, untuned, on every visible card
+    (n >= 2), two passes each (the second warm, timed only), every first
+    pass's VCF byte-identical to the one-card hash-table pass's, no
+    overflow, the vote kernel launched in every process. One process
+    driving the n cards from one host thread (the replicated index: shard
+    steps in turn) or from a thread a shard (the sharded dictionary),
+    against n processes of one card each (``dist/multihost.py``): the
+    replicated index over nccl (no data collective: only the launch rate
+    differs), the sharded dictionary over nccl and over gloo (the same
+    processes; only the all-to-all transport differs)."""
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import ShardedGenoRunner, make_mesh
+    from vargeno_tpu_torch.engine.geno import GenoRunner
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--all-cards needs 2 or more cards, {n} visible")
+    d, prefix = real_paths()
+    os.makedirs(d, exist_ok=True)
+    fa, vcf, fq = make_dataset(d)
+    build_or_load_index(fa, vcf, prefix, "cards")
+    L, K = autosize_shapes(fq)
+    cfg = dict(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
+               ht_target_load=HT_LOAD)
+    index = store.load(prefix)
+    ref_vcf = os.path.join(d, "cards_ref.vcf")
+    out = {"cards": n}
+
+    def drive(tag, make):
+        """Two passes of one single-process runner; the first pass's VCF
+        is written and held against the first runner's (the one-card
+        pass), the second pass is timed only."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        for i in range(n):
+            torch.cuda.reset_peak_memory_stats(i)
+        def sync():
+            for i in range(n):
+                torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        runner = make()
+        sync()
+        setup_s = time.perf_counter() - t0
+        pass_s = []
+        for k in range(2):
+            vote_fn.launches = 0
+            t0 = time.perf_counter()
+            runner.consume_fastq(fq)
+            sync()
+            pass_s.append(time.perf_counter() - t0)
+            if k == 0:
+                launches = vote_fn.launches
+                check_no_overflow(runner, f"cards/{tag}")
+                path = os.path.join(d, f"cards_{len(out)}.vcf")
+                runner.write_vcf(vcf, path)
+                if len(out) == 1:   # the one-card pass: the reference
+                    os.replace(path, ref_vcf)
+                else:
+                    with open(path) as f, open(ref_vcf) as g:
+                        if f.read() != g.read():
+                            raise AssertionError(f"cards/{tag}: VCF differs "
+                                                 f"from the one-card pass's")
+        if launches <= 0:
+            raise AssertionError(f"cards/{tag}: the vote kernel was never "
+                                 f"launched")
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+        out[tag] = dict(reads_s=[runner.n_reads / 2 / t for t in pass_s],
+                        pass_s=pass_s, setup_s=setup_s,
+                        vote_launches=launches, peak_bytes=peaks)
+        log("cards", f"[{card}] {tag}: {runner.n_reads // 2} reads a pass, "
+                     f"passes {[round(t, 4) for t in pass_s]} s = "
+                     f"{[round(runner.n_reads / 2 / t, 1) for t in pass_s]}"
+                     f" reads/s (setup {setup_s:.2f} s excluded); vote "
+                     f"launches {launches}; peak device memory per card "
+                     f"{peaks} B")
+        del runner
+
+    cards = [f"{DEVICE}:{i}" for i in range(n)]
+    drive("hash table, 1 card", lambda: GenoRunner(
+        index, GenoConfig(**cfg), device=cards[0]))
+    drive(f"replicated index, 1 process, {n} cards",
+          lambda: ShardedGenoRunner(index, make_mesh(devices=cards),
+                                    GenoConfig(**cfg)))
+    drive(f"sharded dictionary, 1 process, {n} cards (a thread a shard)",
+          lambda: ShardedDictGenoRunner(index, make_mesh(devices=cards),
+                                        GenoConfig(**cfg)))
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # n processes of one card each: the replicated index and the sharded
+    # dictionary over nccl, the sharded dictionary over gloo
+    for backend, kinds in (("nccl", ("replicated index",
+                                     "sharded dictionary")),
+                           ("gloo", ("sharded dictionary",))):
+        common = dict(prefix=prefix, fq=fq, vcf_in=vcf, config=cfg,
+                      timeout=300, runs=[dict(
+                          tag=kind, dict=kind == "sharded dictionary",
+                          queued=True, passes=2,
+                          out=os.path.join(d, f"cards_{backend}_{i}.vcf"))
+                          for i, kind in enumerate(kinds)])
+        t0 = time.perf_counter()
+        got = finish_cluster(start_cluster(
+            f"{n} processes over {backend}", backend,
+            [[c] for c in cards], common), 900)
+        wall_s = time.perf_counter() - t0
+        for run in common["runs"]:
+            lines = got.get(run["tag"], [])
+            tag = f"{run['tag']}, {n} processes x 1 card, {backend}"
+            if len(lines) != n:
+                raise AssertionError(f"cards/{tag}: {len(lines)} of {n} "
+                                     f"processes reported")
+            with open(run["out"]) as f, open(ref_vcf) as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"cards/{tag}: VCF differs from "
+                                         f"the one-card pass's")
+            for g in lines:
+                if g["overflow"] or g["vote_launches"] <= 0:
+                    raise AssertionError(f"cards/{tag}: rank {g['rank']}: "
+                                         f"{g}")
+            pass_s = [max(g["pass_s"][k] for g in lines) for k in range(2)]
+            reads = lines[0]["reads"]
+            out[tag] = dict(
+                reads_s=[reads / t for t in pass_s], pass_s=pass_s,
+                setup_s=[g["setup_s"] for g in lines],
+                vote_launches=[g["vote_launches"] for g in lines],
+                peak_bytes=[g["peak_bytes"] for g in lines],
+                index_bytes=[g["index_bytes"] for g in lines],
+                retry_batches=lines[0]["retry_batches"],
+                batches=lines[0]["batches"])
+            log("cards", f"[{card}] {tag}: VCF byte-identical to the "
+                         f"one-card pass's; passes (the slowest process) "
+                         f"{[round(t, 4) for t in pass_s]} s = "
+                         f"{[round(reads / t, 1) for t in pass_s]} reads/s; "
+                         f"{lines[0]['batches'] - lines[0]['retry_batches']}"
+                         f" forward + {lines[0]['retry_batches']} lockstep "
+                         f"retry batches; per process: vote launches "
+                         f"{out[tag]['vote_launches']}, peak device memory "
+                         f"{out[tag]['peak_bytes']} B, index "
+                         f"{out[tag]['index_bytes']} B, setup "
+                         f"{[round(t, 2) for t in out[tag]['setup_s']]} s; "
+                         f"cluster wall {wall_s:.1f} s")
+    return out
+
+
 def main() -> int:
     argv = sys.argv[1:]
     parent = None
     if len(argv) == 2 and argv[0] in ("--parent", "--step-ops-of",
-                                      "--routed-step-ops-of"):
+                                      "--routed-step-ops-of", "--mh-worker"):
         parent = argv[1]
-    elif argv:
-        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+    elif argv and argv != ["--all-cards"]:
+        print("usage: chip_smoke.py [--parent DIR | --all-cards]",
+              file=sys.stderr)
         return 2
     try:
         import numpy as np
@@ -1187,6 +1665,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv and argv[0] == "--mh-worker":
+        return mh_worker(json.loads(argv[1]))
     if argv and argv[0] in ("--step-ops-of", "--routed-step-ops-of"):
         return step_ops_of(parent, routed=argv[0] == "--routed-step-ops-of")
     if parent:
@@ -1220,6 +1700,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("build", f"ptxas {name}: " + line.strip())
 
+    if argv == ["--all-cards"]:
+        cards = phase_cards(card)
+        log("done", f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"cards": {"card": card, **cards}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     vote_t, vote_err = phase_kernel_vote()
     gather_t, gather_err = phase_kernel_gather()
     rates, gather_launches = phase_bench(card)
@@ -1227,6 +1716,7 @@ def main() -> int:
     phase_mesh()
     real = phase_real(card, rates, parent)
     routed = phase_routed(card, real)
+    mh = phase_multihost(card, routed)
 
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"mesh": {
@@ -1235,7 +1725,7 @@ def main() -> int:
         "hash_table": {"reads_s": real["rate"], "peak_bytes": real["peak"],
                        "index_bytes": real["dix_bytes"],
                        "step_ops": real["step_ops"]},
-        **routed}}), flush=True)
+        **routed, "multihost": mh}}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
     print(json.dumps({"kernels": [
@@ -1245,6 +1735,10 @@ def main() -> int:
          "launches": real["launches"], "max_abs_err": vote_err,
          "routed_launches": {k: routed[k]["vote_launches"]
                              for k in ("D1", "D2")},
+         "multihost_launches_per_process": {
+             "48 Mb, 2 processes": mh["mb48"]["vote_launches"],
+             **{f"mini {k} {t}": v for k, runs in mh["mini"].items()
+                for t, v in runs.items()}},
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
          **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
          "ms_before": before["eb_entry_ms"][main_shape] if before else None,

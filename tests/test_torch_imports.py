@@ -33,6 +33,8 @@ MODULES = [
     "vargeno_tpu_torch.index.ucsc", "vargeno_tpu_torch.engine.search",
     "vargeno_tpu_torch.dist", "vargeno_tpu_torch.dist.sharding",
     "vargeno_tpu_torch.dist.sharded_dict", "vargeno_tpu_torch.oracle",
+    "vargeno_tpu_torch.dist.multihost",
+    "vargeno_tpu_torch.engine.pileup_compact",
 ]
 
 

@@ -1,11 +1,13 @@
 """Command line of the PyTorch port (the subcommands of
-``vargeno_tpu/cli.py`` but multi-host geno):
+``vargeno_tpu/cli.py``):
 
   python -m vargeno_tpu_torch.cli index  <ref.fa> <snps.vcf> <prefix>
   python -m vargeno_tpu_torch.cli geno   <prefix> <reads.fq> <snps.vcf> <out.vcf>
       [--device cuda|cpu] [--mesh N [--sharded-dict]] [--batch-reads N]
       [--checkpoint PATH] [--limit-batches N] [--metrics PATH]
       [--no-auto-tune] [--inline-dual] [capacity flags]
+      [--multihost HOST:PORT --num-processes P --process-id I
+       [--dist-backend nccl|gloo] [--local-devices DEV[,DEV...]]]
   python -m vargeno_tpu_torch.cli cohort <prefix> <snps.vcf> <out_{sample}.vcf>
       name=reads.fq [name=reads.fq ...] [--device cuda|cpu] [--mesh N]
   python -m vargeno_tpu_torch.cli oracle-geno <prefix> <reads.fq> <snps.vcf> <out.vcf>
@@ -18,6 +20,16 @@ when there is none; the host runs them only with ``--device cpu``. ``--mesh
 N`` runs on GPUs 0 .. N-1 and stops with an error when fewer are visible;
 with ``--device cpu`` its N shards all run on the host. The index-side
 subcommands, ``oracle-geno`` and ``kmerc`` are host code.
+
+``geno --multihost`` is one process of a multi-process run: start the same
+command once for every process id 0 .. P-1. ``--mesh D`` is then the global
+shard count (default: P times the local devices named, or P) and must
+divide by P; each process drives D / P shards on its ``--local-devices``
+(default cuda:0 .. D/P - 1, or the host with ``--device cpu``). The data
+collectives go over ``--dist-backend`` (default nccl with cuda, gloo with
+cpu; NCCL takes one process a card, so a card named by two processes needs
+gloo). Every collective waits at most 300 s for a peer. Only process 0
+writes the VCF and the checkpoint.
 """
 
 from __future__ import annotations
@@ -79,6 +91,47 @@ def _config(args, fastqs):
     return GenoConfig(**kw)
 
 
+def _process_layout(args):
+    """(local devices, data backend) of one process of a ``--multihost``
+    run; ValueError for a layout that cannot run."""
+    import torch
+
+    if not args.multihost:
+        raise ValueError("--num-processes, --process-id, --dist-backend and "
+                         "--local-devices need --multihost")
+    P = args.num_processes
+    if P < 1 or not 0 <= args.process_id < P:
+        raise ValueError(f"--process-id {args.process_id} is outside "
+                         f"0 .. {P - 1}")
+    kind = torch.device(args.device).type
+    named = args.local_devices.split(",") if args.local_devices else None
+    D = args.mesh or P * (len(named) if named else 1)
+    if D % P:
+        raise ValueError(f"a mesh of {D} shards is not divisible by {P} "
+                         f"processes")
+    local_D = D // P
+    if named is None:
+        if kind == "cpu":
+            named = ["cpu"] * local_D
+        elif local_D > torch.cuda.device_count():
+            raise ValueError(f"{local_D} shards a process but "
+                             f"{torch.cuda.device_count()} CUDA device(s) "
+                             f"are visible (name --local-devices to repeat "
+                             f"one)")
+        else:
+            named = [f"cuda:{i}" for i in range(local_D)]
+    elif len(named) != local_D:
+        raise ValueError(f"{len(named)} --local-devices named for {local_D} "
+                         f"shards a process")
+    if any(torch.device(d).type != kind for d in named):
+        raise ValueError(f"--local-devices must be {kind} devices with "
+                         f"--device {args.device}")
+    backend = args.dist_backend or ("nccl" if kind == "cuda" else "gloo")
+    if backend == "nccl" and kind != "cuda":
+        raise ValueError("--dist-backend nccl needs --device cuda")
+    return named, backend
+
+
 def main(argv=None):
     try:
         return _main(argv)
@@ -108,14 +161,30 @@ def _parser():
                         "testing / partial runs)")
     p.add_argument("--metrics", default=None,
                    help="append jsonl throughput metrics to this path")
-    p.add_argument("--inline-dual", action="store_true",
+    p.add_argument("--inline-dual", "--mh-inline-dual", dest="inline_dual",
+                   action="store_true",
                    help="forward+reverse of every batch in one step (2x "
                         "device work) instead of the default queued retry "
-                        "of failed reads; results are bit-identical")
+                        "of failed reads (lockstep across processes with "
+                        "--multihost); results are bit-identical")
     p.add_argument("--sharded-dict", action="store_true",
-                   help="with --mesh: partition the dictionaries across "
-                        "the mesh (all-to-all routed probes, no hash "
-                        "table)")
+                   help="with --mesh or --multihost: partition the "
+                        "dictionaries across the mesh (all-to-all routed "
+                        "probes, no hash table)")
+    m = p.add_argument_group("multi-process (torch.distributed; run the "
+                             "same command for every process id)")
+    m.add_argument("--multihost", default=None, metavar="HOST:PORT",
+                   help="process 0's address: this is one process of a "
+                        "multi-process run")
+    m.add_argument("--num-processes", type=int, default=1)
+    m.add_argument("--process-id", type=int, default=0)
+    m.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="backend of the data collectives (default nccl "
+                        "with --device cuda, gloo with --device cpu)")
+    m.add_argument("--local-devices", default=None, metavar="DEV[,DEV...]",
+                   help="this process's shard devices, one a shard "
+                        "(default cuda:0 .. D/P - 1; a device repeats only "
+                        "where named)")
     _add_engine_flags(p)
 
     p = sub.add_parser("cohort", help="genotype multiple samples")
@@ -233,13 +302,22 @@ def _main(argv=None):
             return 1
         from .index import store
 
+        layout = None
+        if args.cmd == "geno" and (
+                args.multihost or args.num_processes != 1 or args.process_id
+                or args.dist_backend or args.local_devices):
+            try:
+                layout = _process_layout(args)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 1
         if args.mesh < 0 or (args.cmd == "geno" and args.sharded_dict
-                             and not args.mesh):
+                             and not (args.mesh or layout)):
             print("error: --mesh takes N >= 1 shards (and --sharded-dict "
-                  "needs it)", file=sys.stderr)
+                  "needs it or --multihost)", file=sys.stderr)
             return 1
         mesh = None
-        if args.mesh:
+        if args.mesh and layout is None:
             from .dist.sharding import make_mesh
 
             try:
@@ -251,11 +329,23 @@ def _main(argv=None):
                 return 1
 
     if args.cmd == "geno":
+        cluster = None
+        if layout is not None:
+            from .dist import multihost
+
+            cluster = multihost.initialize(
+                f"tcp://{args.multihost}", args.num_processes,
+                args.process_id, layout[1])
+            mesh = multihost.ProcessMesh(cluster, layout[0])
         cfg = _config(args, [args.reads_fq])
         index = store.load(args.prefix)
         kw = dict(queued_orientation=not args.inline_dual,
                   metrics_path=args.metrics)
-        if mesh is not None:
+        if cluster is not None:
+            cls = (multihost.MultiHostDictGenoRunner if args.sharded_dict
+                   else multihost.MultiHostGenoRunner)
+            runner = cls(index, mesh, cfg, **kw)
+        elif mesh is not None:
             from .dist.sharded_dict import ShardedDictGenoRunner
             from .dist.sharding import ShardedGenoRunner
 
@@ -269,9 +359,11 @@ def _main(argv=None):
         runner.consume_fastq(args.reads_fq,
                              checkpoint_path=args.checkpoint,
                              limit_batches=args.limit_batches)
-        if args.metrics:
+        if args.metrics and (cluster is None or cluster.rank == 0):
             runner.meter.emit()
         runner.write_vcf(args.snp_vcf, args.out_vcf)
+        if cluster is not None:
+            multihost.shutdown(cluster)
         return 0
 
     if args.cmd == "cohort":

@@ -159,12 +159,13 @@ def partition_index(index: store.VarGenoIndex, D: int):
 
 
 def place_shards(partition, mesh: Mesh) -> list:
-    """The partition's shards on the mesh's devices: shard arrays on their
-    own device, replicated tables once per distinct device."""
+    """The partition's shards that this process holds on the mesh's
+    devices (global shards ``mesh.offset ..``): shard arrays on their own
+    device, replicated tables once per distinct device."""
     (fields, statics), stacked, plan, owned, totals = partition
     repl: dict = {}
     shards = []
-    for d, dev in enumerate(mesh.devices):
+    for d, dev in enumerate(mesh.devices, start=mesh.offset):
         if dev not in repl:
             repl[dev] = dict(
                 {f: _to_device(fields[f], dev) for f in REPLICATED},
@@ -437,7 +438,8 @@ class ShardedDictGenoRunner(ShardedGenoRunner):
         shard, mesh = self.shards[rank], self.mesh
 
         def factory(_dix):
-            return RoutedBackend(shard, mesh, rank, cfg.replicate_stride_bug,
+            return RoutedBackend(shard, mesh, mesh.offset + rank,
+                                 cfg.replicate_stride_bug,
                                  cfg.block_size_threshold,
                                  scan_slots=cfg.route_scan_slots,
                                  route_factor=cfg.route_factor)
@@ -445,9 +447,9 @@ class ShardedDictGenoRunner(ShardedGenoRunner):
         return make_batch_processor(shard.dix, cfg, self.vote, factory)
 
     def _run_shards(self, fns) -> list:
-        """Every collective of a step meets all shards: run them in
-        lockstep, a thread each (one shard needs none)."""
-        if self.D == 1:
+        """Every collective of a step meets all shards: run the local ones
+        in lockstep, a thread each (one needs none)."""
+        if self.local_D == 1:
             return super()._run_shards(fns)
         return self.mesh.run_lockstep(fns)
 

@@ -59,20 +59,28 @@ class Mesh:
     routed backend needs (``all_to_all``). ``run_lockstep`` runs one
     callable a shard, each on its own thread, so every shard's step can
     meet at each collective; ``timeout`` bounds every wait there and the
-    whole lockstep call."""
+    whole lockstep call.
+
+    ``size`` is the global shard count D and ``all_to_all`` takes a global
+    shard rank; ``devices`` are this process's shards, global ranks
+    ``offset .. offset + len(devices) - 1``. One process holds every
+    shard here (offset 0); ``dist.multihost.ProcessMesh`` spans
+    processes."""
 
     def __init__(self, devices: Sequence, timeout: float = DEFAULT_TIMEOUT):
         if not devices:
             raise ValueError("a mesh needs at least one device")
         self.devices = [torch.device(d) for d in devices]
         self.size = len(self.devices)
+        self.offset = 0
         self.timeout = timeout
-        self._barrier = threading.Barrier(self.size, timeout=timeout)
-        self._slots: list = [None] * self.size
+        self._barrier = threading.Barrier(len(self.devices), timeout=timeout)
+        self._slots: list = [None] * len(self.devices)
 
-    def device_ctx(self, rank: int):
-        """The CUDA device guard of shard ``rank`` (nothing on the host)."""
-        dev = self.devices[rank]
+    def device_ctx(self, i: int):
+        """The CUDA device guard of local shard ``i`` (nothing on the
+        host)."""
+        dev = self.devices[i]
         return (torch.cuda.device(dev) if dev.type == "cuda"
                 else contextlib.nullcontext())
 
@@ -106,10 +114,11 @@ class Mesh:
         raises, the collectives abort and the first exception that is not
         the abort itself is raised here; if the call outlasts the timeout,
         TimeoutError. Never a silent partial result."""
-        if len(fns) != self.size:
-            raise ValueError(f"{len(fns)} callables for {self.size} shards")
-        results: list = [None] * self.size
-        errors: list = [None] * self.size
+        n = len(self.devices)
+        if len(fns) != n:
+            raise ValueError(f"{len(fns)} callables for {n} shards")
+        results: list = [None] * n
+        errors: list = [None] * n
 
         def work(r):
             try:
@@ -121,7 +130,7 @@ class Mesh:
 
         threads = [threading.Thread(target=work, args=(r,), daemon=True,
                                     name=f"mesh-shard-{r}")
-                   for r in range(self.size)]
+                   for r in range(n)]
         for t in threads:
             t.start()
         deadline = time.monotonic() + self.timeout
@@ -133,7 +142,7 @@ class Mesh:
             raise TimeoutError(f"mesh shards {hung} did not finish within "
                                f"{self.timeout} s")
         self._barrier.reset()
-        self._slots = [None] * self.size
+        self._slots = [None] * n
         first = [e for e in errors if e is not None
                  and not isinstance(e, MeshAborted)]
         if first:
@@ -177,16 +186,19 @@ def device_bytes(tensors) -> int:
 
 
 class ShardedGenoRunner(GenoRunner):
-    """Data-parallel geno over a mesh. The host feeds global batches of
-    D x batch_reads reads; shard d runs reads [d*B, (d+1)*B) on
-    ``mesh.devices[d]``. Inherits GenoRunner's host loop."""
+    """Data-parallel geno over a mesh. The host feeds batches of
+    local_D x batch_reads reads (local_D = the mesh's devices in this
+    process, D of them in one process); local shard i runs reads
+    [i*B, (i+1)*B) on ``mesh.devices[i]``. Inherits GenoRunner's host
+    loop."""
 
     def __init__(self, index: store.VarGenoIndex, mesh: Mesh,
                  config: GenoConfig = DEFAULT_CONFIG,
                  vote=vote_scan_records, queued_orientation: bool = True,
                  metrics_path: Optional[str] = None):
         self.mesh = mesh
-        self.D = mesh.size
+        self.D = mesh.size   # global shard count
+        self.local_D = len(mesh.devices)
         self.shards = self._prepare_shards(index, config)
         super().__init__(index, config, device=mesh.devices[0],
                          dix=self._dix_of(self.shards[0]), vote=vote,
@@ -230,13 +242,13 @@ class ShardedGenoRunner(GenoRunner):
     # --- GenoRunner hooks ---
 
     def _loop_batch(self) -> int:
-        return self.D * self.config.batch_reads
+        return self.local_D * self.config.batch_reads
 
     def _proc(self, cfg: GenoConfig):
         procs = self._procs.get(cfg)
         if procs is None:
             procs = self._procs[cfg] = [self._processor(cfg, r)
-                                        for r in range(self.D)]
+                                        for r in range(self.local_D)]
         return procs
 
     def _fresh_counts(self):
@@ -270,19 +282,27 @@ class ShardedGenoRunner(GenoRunner):
                        part(n_kmers, r))
                 for r, dev in enumerate(self.mesh.devices)]
 
+    def _merge_rows(self, keys, rows) -> list:
+        """The stats rows that the batch's decisions read: here this
+        process's shards, which are all of them. A multi-process runner
+        gathers every process's rows (``dist.multihost``)."""
+        return rows
+
     def _attempt(self, procs, args, dual: bool):
-        """Every shard's step, one packed vector each, fetched together.
-        Stats: ``*_max`` keys take the max over shards, the rest the sum;
+        """Every local shard's step, one packed vector each, fetched
+        together. Stats over every shard's row (``_merge_rows``):
+        ``*_max`` keys take the max over shards, the rest the sum;
         auto-tune reads each key's largest single-shard value (capacities
         are per-shard shapes)."""
         outs = self._run_shards([
             functools.partial(step_vec, procs[r], args[r], dual,
                               self.ref_cnt[r], self.alt_cnt[r])
-            for r in range(self.D)])
+            for r in range(self.local_D)])
         keys = outs[0][2]
         B = None if dual else self.config.batch_reads
         rows, masks = zip(*(unpack_vec(v, keys, B)
                             for v in fetch([o[3] for o in outs])))
+        rows = self._merge_rows(keys, list(rows))
         stats = {k: (max(r[k] for r in rows) if k.endswith("_max")
                      else sum(r[k] for r in rows)) for k in keys}
         tune = {k: max(r[k] for r in rows) for k in keys}

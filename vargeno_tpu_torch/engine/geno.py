@@ -195,6 +195,13 @@ def unpack_vec(vals: np.ndarray, keys, B: Optional[int]):
     return srow, (_unbits(bits[:nw], B), _unbits(bits[nw:], B))
 
 
+def reads_of(batch) -> int:
+    """The reads a host-loop batch accounts for: its own, or for a stripe
+    of a global batch (``iter_read_batches_strided``), the global batch's."""
+    return batch.n_valid if batch.global_n_valid < 0 else \
+        batch.global_n_valid
+
+
 def _encoder(K: int):
     from .. import native
 
@@ -358,24 +365,31 @@ class GenoRunner:
         consume(fastq_path, skip, limit_batches, checkpoint_path,
                 checkpoint_every)
         if checkpoint_path:
-            ckpt.save(checkpoint_path, *self.host_counts(), self.n_reads)
+            self._ckpt_save(checkpoint_path)
         overflow = {k: v for k, v in self.stats_totals.items()
                     if "overflow" in k and v}
         if overflow:
             warnings.warn(f"engine capacity overflows (results may diverge "
                           f"from reference): {overflow}")
 
+    def _ckpt_save(self, path: str) -> None:
+        ckpt.save(path, *self.host_counts(), self.n_reads)
+
+    def _read_batches(self, fastq_path, skip):
+        """The host loop's read batches (a multi-process runner reads its
+        stripe of each global batch)."""
+        cfg = self.config
+        return iter_read_batches(fastq_path, self._loop_batch(),
+                                 cfg.max_read_len, cfg.max_kmers_per_read,
+                                 skip_reads=skip)
+
     def _batches(self, fastq_path, skip):
         """Encoded batches from a producer thread: (batch, enc) pairs in a
         generator that stops its thread when closed."""
-        cfg = self.config
-        encode = _encoder(cfg.max_kmers_per_read)
+        encode = _encoder(self.config.max_kmers_per_read)
 
         def produce():
-            for b in iter_read_batches(fastq_path, self._loop_batch(),
-                                       cfg.max_read_len,
-                                       cfg.max_kmers_per_read,
-                                       skip_reads=skip):
+            for b in self._read_batches(fastq_path, skip):
                 yield b, encode(b.codes, b.n_kmers)
 
         return contextlib.closing(prefetch(produce(), depth=3)), encode
@@ -386,13 +400,12 @@ class GenoRunner:
         nb = 0
         with batches as it:
             for batch, enc in it:
-                self.n_reads += batch.n_valid
+                self.n_reads += reads_of(batch)
                 self.run_batch(enc, batch.qual, n_kmers=batch.n_kmers)
-                self.meter.bump(batch.n_valid)
+                self.meter.bump(reads_of(batch))
                 nb += 1
                 if checkpoint_path and nb % checkpoint_every == 0:
-                    ckpt.save(checkpoint_path, *self.host_counts(),
-                              self.n_reads)
+                    self._ckpt_save(checkpoint_path)
                 if limit_batches and nb >= limit_batches:
                     break
 
@@ -418,28 +431,9 @@ class GenoRunner:
         def flush_pending(force=False):
             nonlocal pend_n, nb
             while pend_n >= B or (force and pend_n > 0):
-                tc, tk, tq = [], [], []
-                got = 0
-                while pend and got < B:
-                    c0, k0, q0 = pend[0]
-                    need = B - got
-                    if c0.shape[0] <= need:
-                        pend.pop(0)
-                    else:
-                        pend[0] = (c0[need:], k0[need:], q0[need:])
-                        c0, k0, q0 = c0[:need], k0[:need], q0[:need]
-                    tc.append(c0)
-                    tk.append(k0)
-                    tq.append(q0)
-                    got += c0.shape[0]
-                if got < B:
-                    pad = B - got
-                    tc.append(np.full((pad, tc[0].shape[1]), 4, np.uint8))
-                    tk.append(np.zeros(pad, np.int32))
-                    tq.append(np.zeros((pad, tq[0].shape[1]), np.uint8))
+                codes, nk, qual, got = self._take_queued(pend, B)
                 pend_n -= got
-                codes, nk = np.concatenate(tc), np.concatenate(tk)
-                self.run_batch(encode(codes, nk), np.concatenate(tq))
+                self.run_batch(encode(codes, nk), qual)
                 self.meter.bump(0)
                 nb += 1
 
@@ -455,11 +449,37 @@ class GenoRunner:
                 if checkpoint_path and nb % checkpoint_every == 0:
                     # drain first: a checkpoint holds no queued reads
                     flush_pending(force=True)
-                    ckpt.save(checkpoint_path, *self.host_counts(),
-                              self.n_reads)
+                    self._ckpt_save(checkpoint_path)
                 if limit_batches and nb >= limit_batches:
                     break
         flush_pending(force=True)
+
+    def _take_queued(self, queue: list, B: int):
+        """Up to B queued reads off the front of ``queue`` (a list of
+        (codes, n_kmers, qual) segments, consumed in place), padded with
+        empty reads to B rows: (codes, n_kmers, qual, reads taken)."""
+        cfg = self.config
+        tc, tk, tq = [], [], []
+        got = 0
+        while queue and got < B:
+            c0, k0, q0 = queue[0]
+            need = B - got
+            if c0.shape[0] <= need:
+                queue.pop(0)
+            else:
+                queue[0] = (c0[need:], k0[need:], q0[need:])
+                c0, k0, q0 = c0[:need], k0[:need], q0[:need]
+            tc.append(c0)
+            tk.append(k0)
+            tq.append(q0)
+            got += c0.shape[0]
+        if got < B:
+            pad = B - got
+            tc.append(np.full((pad, cfg.max_read_len), 4, np.uint8))
+            tk.append(np.zeros(pad, np.int32))
+            tq.append(np.zeros((pad, cfg.max_kmers_per_read), np.uint8))
+        return (np.concatenate(tc), np.concatenate(tk), np.concatenate(tq),
+                got)
 
     def host_counts(self):
         return self.ref_cnt.cpu().numpy(), self.alt_cnt.cpu().numpy()

@@ -93,8 +93,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    equal to the hash-table pass's; vote launches, peak device memory and
    index bytes per process. Two processes on one card check the protocol
    and a shard's memory; they are not a deployment.
+10. fuzz  -- the differential fuzzer (tools/fuzz_diff.py) on seeds fixed
+   in advance: seeds 0-23 through GenoRunner as each seed's draw says, and
+   the same fixtures through the replicated mesh at D = 2 and the sharded
+   dictionary at D = 1 and D = 2; seeds 0 and 1 on 2 processes x 1 shard
+   over gloo (replicated and sharded dictionary); seed 0 at VGT_FUZZ_BIG
+   scale (307,000 reads) through the tool's command line in a process of
+   its own, beside the rest. Each run's counts must equal the sequential
+   oracle's at every site, with no overflow left and the vote kernel
+   launched. Prints a line a runner (seeds, mismatches, escalations, vote
+   launches, seconds) and the phase's seconds.
 
-A JSON line ``{"mesh": ...}`` carries phase 8's and phase 9's numbers.
+A JSON line ``{"mesh": ...}`` carries phase 8's and phase 9's numbers,
+``{"fuzz": ...}`` phase 10's.
 
 cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    runner (the second warm), every VCF equal to the one-card hash-table
@@ -146,6 +157,10 @@ DEVICE = "cuda"
 # operations/s outside the tensor cores (the float32 rate, taken for the
 # kernels' 32-bit integer operations too)
 PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
+# phase fuzz: the seeds of the differential fuzzer, fixed in advance
+FUZZ_SEEDS = range(24)
+FUZZ_MH_SEEDS = (0, 1)   # also on 2 processes
+FUZZ_BIG_SEED = 0        # also at VGT_FUZZ_BIG scale
 
 
 def log(phase: str, msg: str) -> None:
@@ -1206,8 +1221,11 @@ def mh_worker(spec: dict) -> int:
     multi-process runner, drives ``consume_fastq`` (the vote kernel's
     count set to 0 just before, read just after; the processes start it
     together after a barrier) and ``write_vcf``, and prints one JSON line
-    ``{"mh_run": ...}`` with what this process saw."""
+    ``{"mh_run": ...}`` with what this process saw. A run with a
+    ``counts`` path also has process 0 save the merged per-site counts
+    there (``np.savez``: ref, alt)."""
     sys.path.insert(0, ROOT)
+    import numpy as np
     import torch
 
     from vargeno_tpu_torch.config import GenoConfig
@@ -1254,6 +1272,10 @@ def mh_worker(spec: dict) -> int:
                 retry_reads=runner.n_retry_reads,
                 overflow={key: v for key, v in runner.stats_totals.items()
                           if "overflow" in key and v})
+            if run.get("counts"):   # a collective: every process calls it
+                rc, ac = runner.host_counts()
+                if cluster.rank == 0:
+                    np.savez(run["counts"], ref=rc, alt=ac)
             runner.write_vcf(spec["vcf_in"], run["out"])
         got.update(pass_s=pass_s, index_bytes=runner.device_bytes(),
                    peak_bytes=torch.cuda.max_memory_allocated(
@@ -1494,6 +1516,192 @@ def phase_multihost(card: str, routed: dict) -> dict:
                   setup_s=[g["setup_s"] for g in got]))
 
 
+def start_fuzz_big(root: str):
+    """Phase fuzz (e): ``python -m vargeno_tpu_torch.tools.fuzz_diff 1
+    FUZZ_BIG_SEED`` at VGT_FUZZ_BIG=1 in a fresh interpreter, its fixture
+    in a temporary directory under ``root``. The tool runs the seed's
+    fork-parallel oracle before its process touches the card."""
+    tmp = os.path.join(root, "big")
+    os.makedirs(tmp)
+    return subprocess.Popen(
+        [sys.executable, "-m", "vargeno_tpu_torch.tools.fuzz_diff", "1",
+         str(FUZZ_BIG_SEED), "--device", "cuda"], cwd=ROOT,
+        env=dict(os.environ, VGT_FUZZ_BIG="1", TMPDIR=tmp),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_fuzz_big(proc, timeout: float) -> dict:
+    """Wait for the big seed's tool run and read its seed line."""
+    import re
+
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"fuzz/big seed: the tool did not finish within "
+                           f"{timeout} s") from None
+    for line in out.splitlines():
+        log("fuzz", f"big seed: {line}")
+    m = re.search(rf"^seed {FUZZ_BIG_SEED}: (PASS|FAIL) \(([\d.]+)s "
+                  r"engine\+oracle\) (.*) mismatches=(\d+) "
+                  r"escalations=(\d+) vote_launches=(\d+) "
+                  r"overflow_left=(.*)$", out, re.M)
+    if proc.returncode or not m or m.group(1) != "PASS":
+        raise AssertionError(f"fuzz/big seed {FUZZ_BIG_SEED}: the tool "
+                             f"exited {proc.returncode}:\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    return dict(seed=FUZZ_BIG_SEED, case=m.group(3),
+                mismatches=int(m.group(4)), escalations=int(m.group(5)),
+                vote_launches=int(m.group(6)), overflow_left=m.group(7),
+                engine_oracle_s=float(m.group(2)),
+                waited_s=time.perf_counter() - t0)
+
+
+def phase_fuzz(card: str) -> dict:
+    """Differential fuzzing (``vargeno_tpu_torch/tools/fuzz_diff.py``) of
+    every runner against the sequential oracle, seeds fixed in advance.
+    (a) Seeds 0-23 (``FUZZ_SEEDS``), each through GenoRunner on the card
+    as its draw says (queued or inline dual, its batch size and caps);
+    (b) the same fixtures through the replicated-index mesh at D = 2 and
+    (c) through the sharded dictionary at D = 1 and D = 2 (D = 2 names
+    cuda:0 twice), each with the seed's own config; (d) seeds 0 and 1 on 2
+    processes x 1 shard naming cuda:0 over gloo, replicated and sharded
+    dictionary, each process loading the seed's index from the port's
+    ``store.save``; (e) seed 0 at VGT_FUZZ_BIG scale through the tool's
+    command line in a process of its own, beside (a)-(d). Every run's
+    ``min(count, 63)`` must equal the oracle's at every site, with no
+    overflow left after escalation and the vote kernel launched (its
+    count set to 0 just before each run and read just after). All runs
+    go through before a failure is raised, so that every mismatch shows."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import ShardedGenoRunner
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+    from vargeno_tpu_torch.tools import fuzz_diff
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = os.path.join(CACHE, "fuzz")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    mesh_runner = fuzz_diff.mesh_runner
+    runners = {"GenoRunner": fuzz_diff.geno_runner,
+               "replicated mesh, D = 2": mesh_runner(ShardedGenoRunner, 2),
+               "sharded dictionary, D = 1":
+                   mesh_runner(ShardedDictGenoRunner, 1),
+               "sharded dictionary, D = 2":
+                   mesh_runner(ShardedDictGenoRunner, 2)}
+    tally: dict = {}
+    failures = []
+
+    def count(name, seed, mismatches, escalations, launches, seconds,
+              overflow):
+        t = tally.setdefault(name, dict(seeds=0, mismatches=0,
+                                        escalations=0, vote_launches=0,
+                                        seconds=0.0))
+        t["seeds"] += 1
+        t["mismatches"] += mismatches
+        t["escalations"] += escalations
+        t["vote_launches"] += launches
+        t["seconds"] += seconds
+        if mismatches or overflow or launches <= 0:
+            failures.append(f"{name}, seed {seed}: {mismatches} mismatches, "
+                            f"overflow left {overflow}, vote launches "
+                            f"{launches}")
+
+    def start_mh(prep, d):
+        prefix = os.path.join(d, "index")
+        store.save(prefix, prep.index)
+        runs = [dict(tag=tag, dict=is_dict, queued=prep.case["queued"],
+                     out=os.path.join(d, f"mh_{i}.vcf"),
+                     counts=os.path.join(d, f"mh_{i}.npz"))
+                for i, (tag, is_dict) in enumerate(
+                    (("replicated", False), ("sharded dictionary", True)))]
+        spec = dict(prefix=prefix, fq=prep.fq, vcf_in=prep.vcf,
+                    config=prep.case["config"], timeout=300, runs=runs)
+        return spec, start_cluster(
+            f"fuzz seed {prep.case['seed']}, 2 processes on cuda:0 over "
+            f"gloo", "gloo", [["cuda:0"]] * 2, spec)
+
+    def finish_mh(prep, spec, cluster):
+        runs = finish_cluster(cluster, 600)
+        for run in spec["runs"]:
+            got = runs.get(run["tag"], [])
+            name = f"2 processes x 1 shard, {run['tag']}"
+            if len(got) != 2:
+                raise AssertionError(f"fuzz/{name}: {len(got)} of 2 "
+                                     f"processes reported")
+            with np.load(run["counts"]) as z:
+                bad = fuzz_diff.bad_sites(prep, z["ref"], z["alt"])
+            launches = [g["vote_launches"] for g in got]
+            log("fuzz", f"{name}: seed {prep.case['seed']}: "
+                        f"{'PASS' if not bad else 'FAIL'} "
+                        f"{fuzz_diff.describe(prep.case)} mismatches="
+                        f"{len(bad)} escalations="
+                        f"{got[0]['escalations']} vote launches per process "
+                        f"{launches} overflow left "
+                        f"{[g['overflow'] for g in got]}")
+            for line in bad[:10]:
+                log("fuzz", line)
+            count(name, prep.case["seed"], len(bad), got[0]["escalations"],
+                  min(launches), max(g["geno_s"] for g in got),
+                  [g["overflow"] for g in got if g["overflow"]])
+
+    big = start_fuzz_big(root)   # (e) runs beside (a)-(d)
+    clusters = []
+    try:
+        for seed in FUZZ_SEEDS:
+            d = os.path.join(root, f"seed{seed}")
+            os.makedirs(d)
+            prep = fuzz_diff.prepare(seed, d, big=False)
+            if seed in FUZZ_MH_SEEDS:
+                clusters.append((prep, *start_mh(prep, d)))
+            for name, make in runners.items():
+                vote_fn.launches = 0
+                got = fuzz_diff.check(
+                    prep, "cuda:0", make,
+                    say=lambda m, name=name: log("fuzz", f"{name}: {m}"))
+                count(name, seed, got["mismatches"], got["escalations"],
+                      vote_fn.launches, got["engine_s"], got["overflow"])
+        for prep, spec, cluster in clusters:
+            finish_mh(prep, spec, cluster)
+        big_got = finish_fuzz_big(big, 780)
+    finally:   # on a failure, stop what still runs
+        for p in [big] + [p for _, _, (_, procs) in clusters for p in procs]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    name = f"GenoRunner, big seed {FUZZ_BIG_SEED}"
+    count(name, FUZZ_BIG_SEED, big_got["mismatches"],
+          big_got["escalations"], big_got["vote_launches"],
+          big_got["engine_oracle_s"],
+          "" if big_got["overflow_left"] == "0" else
+          big_got["overflow_left"])
+    for name, t in tally.items():
+        log("fuzz", f"[{card}] {name}: seeds {t['seeds']}, mismatches "
+                    f"{t['mismatches']}, escalations {t['escalations']}, "
+                    f"vote launches {t['vote_launches']}, "
+                    f"{t['seconds']:.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    log("fuzz", f"phase fuzz {phase_s:.1f} s (the big seed's tool run "
+                f"{big_got['engine_oracle_s']:.1f} s engine + oracle, beside "
+                f"the rest)")
+    if failures:
+        raise AssertionError("fuzz: " + "; ".join(failures))
+    return dict(card=card, seeds=list(FUZZ_SEEDS),
+                multiprocess_seeds=list(FUZZ_MH_SEEDS), runners=tally,
+                big=big_got, seconds=phase_s)
+
+
 def phase_cards(card: str) -> dict:
     """``--all-cards``: the 48 Mb workload, untuned, on every visible card
     (n >= 2), two passes each (the second warm, timed only), every first
@@ -1717,6 +1925,7 @@ def main() -> int:
     real = phase_real(card, rates, parent)
     routed = phase_routed(card, real)
     mh = phase_multihost(card, routed)
+    fuzz = phase_fuzz(card)
 
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"mesh": {
@@ -1726,6 +1935,7 @@ def main() -> int:
                        "index_bytes": real["dix_bytes"],
                        "step_ops": real["step_ops"]},
         **routed, "multihost": mh}}), flush=True)
+    print(json.dumps({"fuzz": fuzz}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
     print(json.dumps({"kernels": [
@@ -1739,6 +1949,8 @@ def main() -> int:
              "48 Mb, 2 processes": mh["mb48"]["vote_launches"],
              **{f"mini {k} {t}": v for k, runs in mh["mini"].items()
                 for t, v in runs.items()}},
+         "fuzz_launches": {k: v["vote_launches"]
+                           for k, v in fuzz["runners"].items()},
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
          **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
          "ms_before": before["eb_entry_ms"][main_shape] if before else None,

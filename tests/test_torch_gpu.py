@@ -32,6 +32,7 @@ from vargeno_tpu_torch.kernels.gather import (gather_rows_sum,
 from vargeno_tpu_torch.kernels.vote import (vote_scan, vote_scan_plain,
                                             vote_scan_records,
                                             vote_scan_records_plain)
+from vargeno_tpu_torch.tools import fuzz_diff
 from vargeno_tpu_torch.tools.bench_gather import bench
 
 torch.set_num_threads(2)
@@ -453,3 +454,13 @@ def test_mesh_runners_on_cuda_match_cpu(cuda, small_index):
                     if "overflow" in k and v}
         if kw:
             assert run._cfg_run.route_factor > kw["route_factor"]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fuzz_seed_on_cuda_matches_oracle(cuda, seed, tmp_path):
+    """The differential fuzzer's seed on the card: counts equal to the
+    sequential oracle's at every site, no overflow left, the vote kernel
+    launched."""
+    got = fuzz_diff.run_seed(seed, "cuda", tmpdir=str(tmp_path))
+    assert got["ok"] and not got["overflow"], got
+    assert got["vote_launches"] > 0

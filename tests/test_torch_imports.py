@@ -35,6 +35,7 @@ MODULES = [
     "vargeno_tpu_torch.dist.sharded_dict", "vargeno_tpu_torch.oracle",
     "vargeno_tpu_torch.dist.multihost",
     "vargeno_tpu_torch.engine.pileup_compact",
+    "vargeno_tpu_torch.tools.fuzz_diff",
 ]
 
 

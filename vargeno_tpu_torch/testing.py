@@ -1,13 +1,17 @@
-"""Jax-free copy of ``synth_genome`` and ``write_inputs`` from
-``vargeno_tpu/testing.py``: synthetic genome, SNP VCF and FASTQ generation
-for tests, smoke runs and benchmarks.
+"""Jax-free copy of ``vargeno_tpu/testing.py``.
+
+Synthetic dataset + index generation for tests, dryruns and benchmarks.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 
 import numpy as np
+
+from .index import bloom, dictgen, store
+from .io import fasta as fasta_io
 
 _BASES = np.array(list("ACGT"))
 
@@ -123,3 +127,31 @@ def write_inputs(tmpdir: str, rng, genome, n_snps=40, n_reads=2000,
                 f.write("".join(chars[j]) + "\n+\n")
                 f.write("".join(qual_base[j]) + "\n")
     return fa, vcf, fq
+
+
+def build_synth_index(fa, vcf, ref_bf_bits=1 << 20, snp_bf_bits=1 << 18,
+                      lite_bits=64):
+    """Small Bloom geometry for tests (full 9.6Gb filters are benchmark-only).
+
+    Note: non-reference BF sizes change pruning decisions, so outputs are
+    only comparable against an oracle using the SAME geometry -- which the
+    oracle supports, since sizes live in the index."""
+    seqs = fasta_io.parse_fasta(fa)
+    ref_bf, _ = bloom.build_ref_bfs(seqs, ref_bf_bits, lite_bits)
+    snp_bf = bloom.build_snp_bf(seqs, vcf, snp_bf_bits)
+    snp_dict, locs = dictgen.build_snp_dict_from_vcf(seqs, vcf)
+    ref_dict, _ = dictgen.build_ref_dict(seqs)
+    return store.VarGenoIndex(
+        ref=ref_dict, snp=snp_dict, ref_bf=ref_bf, snp_bf=snp_bf,
+        chrlens=[(s.name, s.size) for s in seqs],
+        sites=store.derive_sites(snp_dict), snp_locations=locs)
+
+
+def make_synthetic(seed=0, tmpdir=None, **kw):
+    rng = np.random.default_rng(seed)
+    tmpdir = tmpdir or tempfile.mkdtemp(prefix="vgt_synth_")
+    genome = synth_genome(rng, kw.pop("sizes", (20_000,)),
+                          kw.pop("names", ("chrS1",)))
+    fa, vcf, fq = write_inputs(tmpdir, rng, genome, **kw)
+    index = build_synth_index(fa, vcf)
+    return index, fa, vcf, fq

@@ -103,9 +103,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    oracle's at every site, with no overflow left and the vote kernel
    launched. Prints a line a runner (seeds, mismatches, escalations, vote
    launches, seconds) and the phase's seconds.
+11. genome -- genome scale: a 300 Mb genome, 3,000,000 SNPs, 262,144 reads
+   of 101 bp at batch_reads=32768 (the JAX package's mid-scale point).
+   (a) synthesis and the index build (tools/rehearse_wgs.py, host-only)
+   and (e) the kill / resume endurance over 2,097,152 more reads
+   (tools/endurance_wgs.py: three fresh interpreters on the sharded
+   dictionary at D = 1, leg B SIGKILLed at a checkpoint past half the
+   stream, leg C's VCF byte-identical to leg A's) run in a session of their
+   own beside phases 5, 6 and 10, (e) only once phases 3 and 4 are over;
+   then (b) the hash-table runner (host derivation of its 34 GB table,
+   upload, reads/s, peak device memory, index bytes, the bare vote launch
+   on a 300 Mb step's records), (c) the sharded dictionary at D = 1, its
+   counts equal to (b)'s at every site, and (d) the oracle spot check
+   (2,048 sampled reads through the D = 1 runner and the sequential
+   oracle, every site equal). No overflow may be left and the vote kernel
+   must launch in every run.
 
-A JSON line ``{"mesh": ...}`` carries phase 8's and phase 9's numbers,
-``{"fuzz": ...}`` phase 10's.
+Phase order: 1, 2, then 3-6 and 10 beside genome (a) and (e) and beside
+the making of phase 7's dataset and index (a process of its own, host
+only), then 7-9 and genome (b)-(d); phases 7-9 never run beside those
+processes, so their reads/s stays comparable with earlier runs. The log
+gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries phase 8's and phase 9's
+numbers, ``{"fuzz": ...}`` phase 10's, ``{"genome": ...}`` phase 11's.
 
 cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    runner (the second warm), every VCF equal to the one-card hash-table
@@ -124,6 +143,7 @@ import dataclasses
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -161,6 +181,10 @@ PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 FUZZ_SEEDS = range(24)
 FUZZ_MH_SEEDS = (0, 1)   # also on 2 processes
 FUZZ_BIG_SEED = 0        # also at VGT_FUZZ_BIG scale
+# phase genome: the JAX package's mid-scale point (docs/WORKFLOWS.md:56-60)
+WGS_MB, WGS_SNPS, WGS_READS = 300, 3_000_000, 262_144
+WGS_EXTRA_READS, WGS_SPOT = 2_097_152, 2048   # endurance stream, spot check
+WGS_CHECKPOINT_EVERY = 8   # endurance checkpoints: every 262,144 reads
 
 
 def log(phase: str, msg: str) -> None:
@@ -328,6 +352,38 @@ def vote_bound(total, E, B, C):
     updates ~16 words of state."""
     n_ev = int(total.clamp(0, E).sum())
     return n_ev, bound(n_ev * 8 + B * 17 + 8, n_ev * (min(C, E) + 16))
+
+
+def time_vote_on_step(phase: str, card: str, records, C) -> dict:
+    """The bare vote launch on a step's own records (real reads, real
+    event counts): exactly equal to the plain version, then timed between
+    CUDA events round one call and in a stream of 50 launches, beside its
+    bound. Prints one line; returns the numbers."""
+    import torch
+
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records_plain
+    from vargeno_tpu_torch.utils.profiling import device_ms
+
+    B, E = records[0].shape
+    go, raw_out = raw_vote(records, C)
+    go()
+    want = vote_scan_records_plain(*records, C)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(raw_out, want)):
+        raise AssertionError(f"{phase}: bare vote launch != plain on the "
+                             f"first batch's records")
+    n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
+    raw_ms = device_ms(go, DEVICE, reps=20)
+    st_ms = stream_ms(go)
+    log(phase, f"[{card}] vote on the first forward batch's records, (E, "
+               f"B, C) = {(E, B, C)}, {n_ev} events (most in a read "
+               f"{int(records[2].max())}), row stride "
+               f"{records[0].stride(0)}: bare launch {raw_ms:.4f} ms "
+               f"between CUDA events round one call, {st_ms:.4f} "
+               f"ms a launch in a stream of 50 (no less than the host's "
+               f"time to issue one), bound {b_ms:.4f} ms by {b_by}")
+    return dict(shape=(E, B, C), events=n_ev, raw_ms=raw_ms, stream_ms=st_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_kernel_vote():
@@ -779,6 +835,38 @@ def make_dataset(d):
     return fa, vcf, fq
 
 
+def prepare_real() -> int:
+    """The real phase's dataset and index, made in a process of its own
+    (``start_real_prep``) beside the phases that time no reads/s; prints
+    one JSON line ``{"real_prep": ...}``: the seconds of each, null where
+    the cache already held it."""
+    import vargeno_tpu_torch.testing  # noqa: F401 - not in the seconds
+
+    d, prefix = real_paths()
+    os.makedirs(d, exist_ok=True)
+    fresh = not os.path.exists(os.path.join(d, "ready"))
+    t0 = time.perf_counter()
+    fa, vcf, _ = make_dataset(d)
+    dataset_s = time.perf_counter() - t0 if fresh else None
+    build_s = build_or_load_index(fa, vcf, prefix, "real")
+    print(json.dumps({"real_prep": dict(dataset_s=dataset_s,
+                                        build_s=build_s)}), flush=True)
+    return 0
+
+
+def start_session(cmd):
+    """``cmd`` from the checkout's root in a session of its own (so that
+    ``finish_tool`` can stop all it starts), its output piped."""
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def start_real_prep():
+    return start_session([sys.executable, "-c", "import sys, chip_smoke; "
+                          "sys.exit(chip_smoke.prepare_real())"])
+
+
 def real_paths():
     """The real phase's cache directory and index prefix."""
     d = os.path.join(CACHE, f"bench{GENOME_MB}mb_{N_SNPS}snp_{N_READS}r_"
@@ -878,7 +966,8 @@ def profiled_step(pkg_root: str, routed: bool = False) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def phase_real(card: str, gather_rates: dict, parent: str | None):
+def phase_real(card: str, gather_rates: dict, parent: str | None,
+               prep: dict):
     import numpy as np
     import torch
 
@@ -891,13 +980,12 @@ def phase_real(card: str, gather_rates: dict, parent: str | None):
                                                 vote_scan,
                                                 vote_scan_records,
                                                 vote_scan_records_plain)
-    from vargeno_tpu_torch.utils.profiling import device_ms
     from vargeno_tpu_torch.utils.roofline import roofline
 
+    # the dataset and index come from prepare_real (``prep``: seconds)
     d, prefix = real_paths()
-    os.makedirs(d, exist_ok=True)
-    fa, vcf, fq = make_dataset(d)
-    build_s = build_or_load_index(fa, vcf, prefix, "real")
+    vcf, fq = os.path.join(d, "snps.vcf"), os.path.join(d, "reads.fq")
+    build_s = prep["build_s"]
 
     L, K = autosize_shapes(fq)
     cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
@@ -1023,23 +1111,7 @@ def phase_real(card: str, gather_rates: dict, parent: str | None):
     # real event counts)
     records, C = kept[0]
     B, E = records[0].shape
-    go, raw_out = raw_vote(records, C)
-    go()
-    want = vote_scan_records_plain(*records, C)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(raw_out, want)):
-        raise AssertionError("real: bare vote launch != plain on the first "
-                             "batch's records")
-    n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
-    real_raw_ms = device_ms(go, DEVICE, reps=20)
-    real_stream_ms = stream_ms(go)
-    log("real", f"[{card}] vote on the first forward batch's records, (E, "
-                f"B, C) = {(E, B, C)}, {n_ev} events (most in a read "
-                f"{int(records[2].max())}), row stride "
-                f"{records[0].stride(0)}: bare launch {real_raw_ms:.4f} ms "
-                f"between CUDA events round one call, {real_stream_ms:.4f} "
-                f"ms a launch in a stream of 50 (no less than the host's "
-                f"time to issue one), bound {b_ms:.4f} ms by {b_by}")
+    real_raw_ms = time_vote_on_step("real", card, records, C)["raw_ms"]
 
     # device operations of one vote call: through the records entry, and
     # through the (E, B) entry the way the step fed it before (unpacked
@@ -1702,6 +1774,303 @@ def phase_fuzz(card: str) -> dict:
                 big=big_got, seconds=phase_s)
 
 
+def genome_dir() -> str:
+    return os.path.join(CACHE, f"wgs{WGS_MB}mb_{WGS_SNPS}snp_{WGS_READS}r")
+
+
+def tool_command(tool: str, *args) -> list:
+    return [sys.executable, "-m", f"vargeno_tpu_torch.tools.{tool}",
+            *map(str, args)]
+
+
+def start_genome_background(go: str):
+    """Phase genome (a) and (e), started after the build in a session of
+    their own and run beside the phases that time no reads/s: (a) the
+    rehearsal tool's command line (``--phase index``: synthesis of the
+    genome, the VCF, the 262,144 reads and the 2,097,152 endurance reads,
+    then the index build; host-only), then, once the file ``go`` exists
+    (the main process makes it when the timed kernel and bench phases are
+    over), (e) the endurance tool's command line: three fresh interpreters
+    over the 2,097,152 reads on the sharded dictionary at D = 1, leg B
+    killed at a checkpoint past half the stream, leg C resumed."""
+    import shlex
+
+    d = genome_dir()
+    os.makedirs(d, exist_ok=True)
+    prep = tool_command("rehearse_wgs", "--phase", "index", "--mb", WGS_MB,
+                        "--snps", WGS_SNPS, "--reads", WGS_READS,
+                        "--extra-reads", WGS_EXTRA_READS, "--cache", d)
+    endure = tool_command(
+        "endurance_wgs", "--cache", d, "--mb", WGS_MB, "--snps", WGS_SNPS,
+        "--base-reads", WGS_READS, "--reads", WGS_EXTRA_READS, "--device",
+        DEVICE, "--batch", BATCH, "--checkpoint-every", WGS_CHECKPOINT_EVERY,
+        "--kill-after-frac", 0.5)
+    script = (f"{shlex.join(prep)} && while [ ! -e {shlex.quote(go)} ]; "
+              f"do sleep 1; done && {shlex.join(endure)}")
+    return start_session(["/bin/sh", "-c", script])
+
+
+def finish_tool(proc, timeout: float, tag: str, keys) -> dict:
+    """Wait for a tool run started in a session of its own (the whole
+    session killed once ``timeout`` has passed), print its output under
+    ``tag`` and return its JSON lines ``{key: ...}`` for ``keys`` (a key
+    it printed no line for is missing). A non-zero exit fails the phase."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"{tag}: the tool did not finish within "
+                           f"{timeout} s") from None
+    finally:
+        try:   # the tool and whatever of its session still runs
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    got = {}
+    for line in out.splitlines():
+        log(tag, line)
+        for key in keys:
+            if line.startswith("{\"%s\"" % key):
+                got[key] = json.loads(line)[key]
+    if proc.returncode:
+        raise RuntimeError(f"{tag}: the tool exited {proc.returncode}")
+    return got
+
+
+def endurance_summary(card: str, end: dict) -> dict:
+    """Phase genome (e)'s result: leg B killed at a checkpoint past half
+    the stream and before its end, leg C's VCF byte-identical to leg A's
+    (the tool checks both and says ``ok``), and the vote kernel launched
+    in legs A and C (counted in each leg's process)."""
+    legs = end.get("legs", {})
+    geno = {k: legs.get(k, {}).get("geno") or {} for k in "ABC"}
+    if not end.get("ok") or not legs["B"]["killed"] or not all(
+            geno[k].get("vote_launches", 0) > 0 for k in "AC"):
+        raise AssertionError(f"genome: endurance failed: {end}")
+    log("genome", f"[{card}] endurance: {end['reads']} reads; leg B "
+                  f"killed at checkpoint offset {end['killed_at_offset']} "
+                  f"(kill point {end['kill_at']}); leg C resumed in "
+                  f"{legs['C']['seconds']:.1f} s (streamed "
+                  f"{geno['C']['reads']} reads in {geno['C']['seconds']:.2f}"
+                  f" s); the resumed VCF is byte-identical to leg A's "
+                  f"({end['vcf_bytes']} B); legs A / B / C "
+                  f"{legs['A']['seconds']:.1f} / {legs['B']['seconds']:.1f} "
+                  f"/ {legs['C']['seconds']:.1f} s; vote launches A "
+                  f"{geno['A']['vote_launches']}, C "
+                  f"{geno['C']['vote_launches']}")
+    return dict(
+        reads=end["reads"], kill_at=end["kill_at"],
+        killed_at_offset=end["killed_at_offset"],
+        vcf_bytes=end["vcf_bytes"], seconds=end["seconds"],
+        legs={k: dict(wall_s=legs[k]["seconds"], killed=legs[k]["killed"],
+                      **{f: geno[k].get(f) for f in (
+                          "reads", "seconds", "reads_s", "resumed_from",
+                          "vote_launches", "setup_s", "load_s",
+                          "peak_device_bytes", "index_device_bytes",
+                          "peak_rss_bytes")})
+              for k in "ABC"})
+
+
+def host_memory() -> dict:
+    """The host's MemTotal and the free bytes of the cache's file system."""
+    import shutil
+
+    with open("/proc/meminfo") as f:
+        total = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemTotal:"))
+    return dict(mem_total=total, disk_free=shutil.disk_usage(CACHE).free)
+
+
+def phase_genome(card: str, bg: dict) -> dict:
+    """Genome scale on one card, at the JAX package's mid-scale point: a
+    300 Mb genome, 3,000,000 SNPs, 262,144 reads of 101 bp, batch_reads
+    32768, default capacities with escalation. (a) and (e) ran beside the
+    earlier phases (``start_genome_background``; ``bg``: their JSON lines).
+    (b) The hash-table runner (GenoRunner): derive the tables on the host,
+    carry them to the card, stream the reads; reads/s (index load and
+    derivation excluded), peak device memory, the index's device bytes, no
+    overflow left, the vote kernel launched (count set to 0 just before
+    the pass, read just after), and the bare vote launch timed on the
+    first forward batch's own records. (c) With that index freed, the
+    sharded dictionary at D = 1: the same numbers, counts equal to (b)'s
+    at every site. (d) Oracle spot parity: 2,048 sampled reads through the
+    D = 1 runner and the port's sequential oracle, 0 mismatches over every
+    site. (e) is checked here (``endurance_summary``)."""
+    import numpy as np
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.engine.device_index import from_numpy, host_fields
+    from vargeno_tpu_torch.engine.geno import GenoRunner, _encoder
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes, iter_read_batches
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records
+    from vargeno_tpu_torch.tools import rehearse_wgs
+
+    t_phase = time.perf_counter()
+    prep = bg.get("index", {})
+    d = genome_dir()
+    prefix = os.path.join(d, "wgs")
+    fq = os.path.join(d, "reads.fq")
+    L, K = autosize_shapes(fq)
+    cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
+                     ht_target_load=HT_LOAD)
+    host = host_memory()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    index = store.load(prefix)
+    load_s = time.perf_counter() - t0
+    n_sites = int(index.sites.pos.shape[0])
+    n_ref, n_snp = int(index.ref.kmers.shape[0]), int(index.snp.kmers.shape[0])
+    log("genome", f"[{card}] {WGS_MB} Mb, {n_sites} sites, {n_ref} ref rows, "
+                  f"{n_snp} snp rows; synthesis {prep.get('gen_s')} s, extra "
+                  f"reads {prep.get('extra_reads_s')} s, index build "
+                  f"{prep.get('build_s')} s, {prep.get('disk_bytes')} B on "
+                  f"disk, the builder's peak RSS {prep.get('peak_rss_bytes')} "
+                  f"B; index load (mmap) {load_s:.2f} s; host MemTotal "
+                  f"{host['mem_total']} B, free disk {host['disk_free']} B")
+    if n_sites != WGS_SNPS:
+        raise AssertionError(f"genome: {n_sites} sites, not {WGS_SNPS}")
+    out = dict(card=card, mb=WGS_MB, snps=WGS_SNPS, reads=WGS_READS,
+               batch_reads=BATCH, ref_rows=n_ref, snp_rows=n_snp,
+               prep=prep, load_s=load_s, **host)
+
+    # (b) the hash-table runner. Its derived tables are not written to the
+    # index's derived_torch/ cache (prefix dropped): nothing in the run
+    # reads them back, and the 34 GB table would take half of the 75 GB an
+    # H100 host this phase was sized on had free
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = rehearse_wgs.peak_rss()
+    t0 = time.perf_counter()
+    fields, statics = host_fields(dataclasses.replace(index, prefix=None),
+                                  HT_LOAD)
+    derive_s = time.perf_counter() - t0
+    table_b = int(fields["both_ht"].nbytes)
+    t0 = time.perf_counter()
+    dix = from_numpy(fields, statics, DEVICE)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del fields
+    derive_rss = rehearse_wgs.peak_rss()
+    runner = GenoRunner(index, cfg, device=DEVICE, dix=dix)
+    vote_scan_records.launches = 0
+    t0 = time.perf_counter()
+    runner.consume_fastq(fq)
+    torch.cuda.synchronize()
+    geno_s = time.perf_counter() - t0
+    launches = vote_scan_records.launches
+    check_no_overflow(runner, "genome/hash table")
+    if launches <= 0:
+        raise AssertionError("genome/hash table: the vote kernel was never "
+                             "launched")
+    ht_rc, ht_ac = runner.host_counts()
+    if ht_rc.shape != (n_sites + 1,) or int(ht_rc.sum() + ht_ac.sum()) <= 0:
+        raise AssertionError("genome/hash table: empty or misshapen counts")
+    out["hash_table"] = dict(
+        derive_s=derive_s, upload_s=upload_s, table_bytes=table_b,
+        chain=dix.both_ht_chain, buckets=dix.both_ht_nb,
+        derived_cache_bytes=0,
+        host_peak_rss_before=rss0, host_peak_rss=derive_rss,
+        reads_s=runner.n_reads / geno_s, geno_s=geno_s,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        index_bytes=dix.nbytes(), vote_launches=launches,
+        escalations=runner.n_escalations, retry_reads=runner.n_retry_reads,
+        n_processed=runner.stats_totals["n_processed"])
+    log("genome", f"[{card}] hash table: derive {derive_s:.2f} s on the host "
+                  f"(table {table_b} B, {dix.both_ht_nb} buckets, chain "
+                  f"{dix.both_ht_chain}; cold: 0 B written to the derived "
+                  f"cache, so no warm derivation), upload {upload_s:.2f} s, "
+                  f"host peak RSS {derive_rss} B; {runner.n_reads} reads in "
+                  f"{geno_s:.3f} s = {runner.n_reads / geno_s:.1f} reads/s "
+                  f"(index load and derivation excluded); peak device "
+                  f"memory {out['hash_table']['peak_bytes']} B, index "
+                  f"{dix.nbytes()} B on the card; escalations "
+                  f"{runner.n_escalations}, retry reads "
+                  f"{runner.n_retry_reads}, vote launches {launches}, "
+                  f"n_processed {runner.stats_totals['n_processed']}")
+
+    # the bare vote launch on a 300 Mb step's own records
+    kept = []
+
+    def keeping_vote(ev_idx, ev_meta, ev_total, C):
+        if not kept:
+            kept.append(((ev_idx, ev_meta, ev_total), C))
+        return vote_scan_records(ev_idx, ev_meta, ev_total, C)
+
+    b = next(iter(iter_read_batches(fq, BATCH, L, K)))
+    GenoRunner(index, runner._cfg_run, device=DEVICE, dix=dix,
+               vote=keeping_vote).run_batch(_encoder(K)(b.codes, b.n_kmers),
+                                            b.qual)
+    out["vote_on_step"] = time_vote_on_step("genome", card, *kept[0])
+    del runner, dix, kept, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the sharded dictionary at D = 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = ShardedDictGenoRunner(index, make_mesh(1), cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    vote_scan_records.launches = 0
+    t0 = time.perf_counter()
+    runner.consume_fastq(fq)
+    torch.cuda.synchronize()
+    geno_s = time.perf_counter() - t0
+    launches = vote_scan_records.launches
+    check_no_overflow(runner, "genome/sharded dictionary")
+    rc, ac = runner.host_counts()
+    if not (np.array_equal(rc, ht_rc) and np.array_equal(ac, ht_ac)):
+        bad = int(((rc != ht_rc) | (ac != ht_ac)).sum())
+        raise AssertionError(f"genome: the D = 1 sharded dictionary's counts "
+                             f"differ from the hash table's at {bad} sites")
+    if launches <= 0:
+        raise AssertionError("genome/sharded dictionary: the vote kernel was "
+                             "never launched")
+    out["sharded_d1"] = dict(
+        setup_s=setup_s, reads_s=runner.n_reads / geno_s, geno_s=geno_s,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        index_bytes=runner.device_bytes(), vote_launches=launches,
+        escalations=runner.n_escalations,
+        route_overflow=runner.stats_totals["route_overflow"],
+        final_route_factor=runner._cfg_run.route_factor,
+        retry_reads=runner.n_retry_reads)
+    log("genome", f"[{card}] sharded dictionary, D = 1: partition + upload "
+                  f"{setup_s:.2f} s; {runner.n_reads} reads in {geno_s:.3f} "
+                  f"s = {runner.n_reads / geno_s:.1f} reads/s; counts equal "
+                  f"to the hash table's at all {n_sites} sites; peak device "
+                  f"memory {out['sharded_d1']['peak_bytes']} B, index "
+                  f"{runner.device_bytes()} B on the card; escalations "
+                  f"{runner.n_escalations} (route_factor {cfg.route_factor} "
+                  f"-> {runner._cfg_run.route_factor}), vote launches "
+                  f"{launches}")
+
+    # (d) oracle spot parity through the same runner
+    vote_scan_records.launches = 0
+    spot = rehearse_wgs.spot_parity(index, runner, fq, WGS_SPOT)
+    spot["vote_launches"] = vote_scan_records.launches
+    out["spot"] = spot
+    if spot["mismatches"] or spot["overflow"] or spot["increments"] <= 0 \
+            or spot["vote_launches"] <= 0 or spot["reads"] != WGS_SPOT:
+        raise AssertionError(f"genome: oracle spot parity failed: {spot}")
+    log("genome", f"oracle spot parity: {spot['reads']} reads, 0 mismatches "
+                  f"over {spot['sites']} sites ({spot['increments']} "
+                  f"site-count increments; engine {spot['engine_s']:.2f} s, "
+                  f"oracle {spot['oracle_s']:.2f} s), vote launches "
+                  f"{spot['vote_launches']}")
+    del runner, index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["endurance"] = endurance_summary(card, bg["endurance"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log("genome", f"phase genome {out['seconds']:.1f} s")
+    return out
+
+
 def phase_cards(card: str) -> dict:
     """``--all-cards``: the 48 Mb workload, untuned, on every visible card
     (n >= 2), two passes each (the second warm, timed only), every first
@@ -1917,15 +2286,43 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    vote_t, vote_err = phase_kernel_vote()
-    gather_t, gather_err = phase_kernel_gather()
-    rates, gather_launches = phase_bench(card)
-    phase_golden()
-    phase_mesh()
-    real = phase_real(card, rates, parent)
-    routed = phase_routed(card, real)
-    mh = phase_multihost(card, routed)
-    fuzz = phase_fuzz(card)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        log("done", f"phase {name} {time.perf_counter() - t0:.1f} s")
+        return got
+
+    # phase genome (a) and then (e) run beside the phases that time no
+    # reads/s; (e) takes the card only once the kernel and bench phases
+    # are over
+    go = os.path.join(genome_dir(), "go")
+    if os.path.exists(go):
+        os.remove(go)
+    bg = start_genome_background(go)
+    real_bg = start_real_prep()   # the real phase's dataset and index too
+    try:
+        vote_t, vote_err = timed("kernel (vote)", phase_kernel_vote)
+        gather_t, gather_err = timed("kernel (gather)", phase_kernel_gather)
+        rates, gather_launches = timed("bench", phase_bench, card)
+        open(go, "w").close()
+        timed("golden", phase_golden)
+        timed("mesh", phase_mesh)
+        fuzz = timed("fuzz", phase_fuzz, card)
+        real_prep = timed("real's dataset and index, the rest of their "
+                          "wait", finish_tool, real_bg, 600, "real",
+                          ("real_prep",))["real_prep"]
+        genome_bg = timed("genome (a) and (e), the rest of their wait",
+                          finish_tool, bg, 900, "genome",
+                          ("index", "endurance"))
+    finally:   # on a failure, stop what still runs
+        for p in (bg, real_bg):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    real = timed("real", phase_real, card, rates, parent, real_prep)
+    routed = timed("routed", phase_routed, card, real)
+    mh = timed("multihost", phase_multihost, card, routed)
+    genome = timed("genome", phase_genome, card, genome_bg)
 
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"mesh": {
@@ -1936,6 +2333,7 @@ def main() -> int:
                        "step_ops": real["step_ops"]},
         **routed, "multihost": mh}}), flush=True)
     print(json.dumps({"fuzz": fuzz}), flush=True)
+    print(json.dumps({"genome": genome}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
     print(json.dumps({"kernels": [
@@ -1951,6 +2349,15 @@ def main() -> int:
                 for t, v in runs.items()}},
          "fuzz_launches": {k: v["vote_launches"]
                            for k, v in fuzz["runners"].items()},
+         "genome_launches": {
+             "hash table": genome["hash_table"]["vote_launches"],
+             "sharded dictionary, D = 1":
+                 genome["sharded_d1"]["vote_launches"],
+             "spot parity": genome["spot"]["vote_launches"],
+             **{f"endurance leg {k}": v["vote_launches"]
+                for k, v in genome["endurance"]["legs"].items()
+                if v["vote_launches"] is not None}},
+         "genome_batch_raw_launch_ms": genome["vote_on_step"]["raw_ms"],
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
          **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
          "ms_before": before["eb_entry_ms"][main_shape] if before else None,

@@ -1,14 +1,16 @@
 """End to end on the CPU: the port's GenoRunner and CLI on the mini fixture
 must write a VCF byte-identical to the reference binary's golden output,
 with per-site counts equal to the JAX GenoRunner's, at default capacities
-and at tiny ones that only overflow escalation can recover from."""
+and at tiny ones that only overflow escalation can recover from. The index
+is the port's own small-Bloom one (``torch_index_share.small_index``), the
+JAX runner's the same arrays through ``jax_view``."""
 
 import os
 
 import numpy as np
 import pytest
 import torch
-from torch_index_share import port_view
+from torch_index_share import jax_view, small_index
 
 from vargeno_tpu.config import GenoConfig as JConfig
 from vargeno_tpu.engine.geno import GenoRunner as JRunner
@@ -29,8 +31,8 @@ TINY = dict(events_per_read=6, candidates_per_read=4, probe_hit_cap=4,
 
 
 @pytest.fixture(scope="module")
-def port_index(mini_index):
-    return port_view(mini_index)
+def port_index():
+    return small_index()
 
 
 def _run(index, cfg, tmp_path):
@@ -41,13 +43,12 @@ def _run(index, cfg, tmp_path):
     return runner, open(out).read()
 
 
-def test_geno_matches_golden_and_jax_counts(port_index, mini_index,
-                                            tmp_path):
+def test_geno_matches_golden_and_jax_counts(port_index, tmp_path):
     runner, vcf = _run(port_index, GenoConfig(**BASE), tmp_path)
     assert vcf == GOLDEN
     assert all(v == 0 for k, v in runner.stats_totals.items()
                if "overflow" in k), runner.stats_totals
-    jrun = JRunner(mini_index, JConfig(**BASE))
+    jrun = JRunner(jax_view(port_index), JConfig(**BASE))
     jrun.consume_fastq(os.path.join(FIX, "reads.fq"))
     rc, ac = runner.host_counts()
     np.testing.assert_array_equal(rc, np.asarray(jrun.ref_cnt))

@@ -421,6 +421,26 @@ def test_search_on_cuda_matches_cpu(cuda):
     assert torch.equal(end.cpu(), search.block_end(keys, qh))
 
 
+@pytest.mark.parametrize("dtype,n", [(np.int32, (1 << 26) + 7),
+                                     (np.int64, 3 * (1 << 25) + 1),
+                                     (np.int32, 0), (np.uint8, 13)])
+def test_upload_array_in_pinned_chunks(cuda, monkeypatch, dtype, n):
+    """The staged upload over several chunks (a small stage), with a last
+    chunk of odd size, from a read-only array too, bit for bit."""
+    monkeypatch.setattr(tdi, "STAGE_BYTES", 1 << 24)
+    rng = np.random.default_rng(n)
+    a = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max, n,
+                     dtype=dtype)
+    a.flags.writeable = False
+    got = tdi.upload_array(a, cuda)
+    assert got.device.type == "cuda" and got.shape == a.shape
+    assert np.array_equal(got.cpu().numpy(), a)
+    if dtype == np.int32:   # a uint32 table: the same bits, as int32
+        t = tdi._to_device(a.view(np.uint32).reshape(-1, 1), cuda)
+        assert t.dtype == torch.int32 and t.shape == (n, 1)
+        assert np.array_equal(t.cpu().numpy().ravel(), a)
+
+
 def test_make_mesh_refuses_more_than_visible_gpus(cuda):
     n = torch.cuda.device_count()
     assert make_mesh(n).devices == [torch.device(f"cuda:{i}")

@@ -1,10 +1,13 @@
 """Combined ref+snp bucket-table lookup: the port against the JAX function,
-on the mini index's combined table. Exact equality."""
+on the mini index's combined table (the port's small-Bloom index, built by
+``torch_index_share.small_index``, through ``jax_view``). Exact
+equality."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_index_share import jax_view, small_index
 
 from vargeno_tpu.engine.device_index import build_device_index
 from vargeno_tpu.engine.hashtable import ht_lookup_both as j_lookup
@@ -15,9 +18,15 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
-def combined(mini_index):
-    d = build_device_index(mini_index, host_only=True, ht_target_load=0.5)
-    return d, mini_index
+def mini():
+    return small_index()
+
+
+@pytest.fixture(scope="module")
+def combined(mini):
+    d = build_device_index(jax_view(mini), host_only=True,
+                           ht_target_load=0.5)
+    return d, mini
 
 
 def _queries(index, rng, n_each=3000):
@@ -63,11 +72,11 @@ def test_lookup_both_matches_jax(combined, masked):
     assert not (r_hit | s_hit)[~live].any()    # masked lanes miss
 
 
-def test_numpy_build_lookups_match_jax(mini_index):
+def test_numpy_build_lookups_match_jax(mini):
     """The port's numpy table build (rounds placement) answers like the JAX
     lookup over the same table, with a chain > 1 from a 0.9 bucket load."""
     rng = np.random.default_rng(12)
-    keys = mini_index.ref.kmers[:29491]   # 1024 buckets x 32 slots x 0.9
+    keys = mini.ref.kmers[:29491]   # 1024 buckets x 32 slots x 0.9
     hi = (keys >> np.uint64(32)).astype(np.uint32)
     lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     pos = rng.integers(0, 2**32, keys.size, dtype=np.uint64).astype(
@@ -78,6 +87,6 @@ def test_numpy_build_lookups_match_jax(mini_index):
     tab = build_hash_table(hi, lo, pos, flag, info, target_load=1.0,
                            use_native=False)
     assert tab.nb == 1024 and tab.chain > 1
-    qh, ql = _queries(mini_index, rng, 2000)
+    qh, ql = _queries(mini, rng, 2000)
     _compare(tab.table, tab.nb, tab.chain, np.concatenate([hi, qh]),
              np.concatenate([lo, ql]), None)

@@ -36,6 +36,8 @@ MODULES = [
     "vargeno_tpu_torch.dist.multihost",
     "vargeno_tpu_torch.engine.pileup_compact",
     "vargeno_tpu_torch.tools.fuzz_diff",
+    "vargeno_tpu_torch.tools.rehearse_wgs",
+    "vargeno_tpu_torch.tools.endurance_wgs",
 ]
 
 

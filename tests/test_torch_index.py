@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch_index_share import port_view
+from torch_index_share import jax_view, small_index
 
 from vargeno_tpu.engine.device_index import build_device_index as j_build
 from vargeno_tpu_torch.engine import device_index as tdi
@@ -68,9 +68,9 @@ def test_bloom_matches_golden(seqs, which):
         np.testing.assert_array_equal(_set_bits(bf), g["set_bits"])
 
 
-def test_from_numpy_of_jax_tables_matches_port_derivation(mini_index):
-    port_index = port_view(mini_index)
-    jd = j_build(mini_index, host_only=True, ht_target_load=0.5)
+def test_from_numpy_of_jax_tables_matches_port_derivation():
+    port_index = small_index()
+    jd = j_build(jax_view(port_index), host_only=True, ht_target_load=0.5)
     fields = {f: getattr(jd, f) for f in tdi.DEVICE_FIELDS}
     statics = {f: getattr(jd, f) for f in tdi.STATIC_FIELDS}
     from_jax = tdi.from_numpy(fields, statics, "cpu")

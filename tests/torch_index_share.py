@@ -1,14 +1,8 @@
 """Indexes for the port's tests that keep a worker's memory small (tier-1
 runs six workers in one machine's memory).
 
-``port_view``: the port's view of the JAX package's shared test index
-(tests/conftest.py mini_index): the port's dataclasses over the same numpy
-arrays, with no copy, so a test worker holds one 1.2 GB Bloom filter and
-not two.
-
-``jax_view``: the inverse, the JAX package's dataclasses over a port
-index's arrays (no copy), so the JAX runners and oracle run on
-``small_index()``.
+``jax_view``: the JAX package's dataclasses over a port index's arrays
+(no copy), so the JAX runners and oracle run on ``small_index()``.
 
 ``small_index``: the mini fixture's index at a small Bloom geometry, built
 by the port's own (jax-free) index code: no 1.2 GB filter at all. A ref
@@ -20,8 +14,6 @@ import dataclasses
 import os
 
 from vargeno_tpu_torch.index import bloom, dictgen, store
-from vargeno_tpu_torch.index.bloom import BitVector
-from vargeno_tpu_torch.index.dictgen import RefDict, SnpDict
 from vargeno_tpu_torch.io import fasta as fasta_io
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "mini")
@@ -31,15 +23,6 @@ def _shared(obj, cls):
     """``cls`` over the same field values as the dataclass ``obj``."""
     return cls(**{f.name: getattr(obj, f.name)
                   for f in dataclasses.fields(cls)})
-
-
-def port_view(j) -> store.VarGenoIndex:
-    return store.VarGenoIndex(
-        ref=_shared(j.ref, RefDict), snp=_shared(j.snp, SnpDict),
-        ref_bf=_shared(j.ref_bf, BitVector),
-        snp_bf=_shared(j.snp_bf, BitVector), chrlens=j.chrlens,
-        sites=_shared(j.sites, store.SnpSites),
-        snp_locations=j.snp_locations)
 
 
 def jax_view(p):

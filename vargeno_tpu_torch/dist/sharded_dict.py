@@ -44,7 +44,8 @@ from ..core.hashes import M32, widen
 from ..engine import search
 from ..engine.backend import LocalBackend, ScanResult
 from ..engine.batch import make_batch_processor
-from ..engine.device_index import TorchDeviceIndex, _to_device, host_fields
+from ..engine.device_index import (TorchDeviceIndex, _to_device, host_fields,
+                                   upload_array)
 from ..index import store
 from .sharding import Mesh, ShardedGenoRunner, device_bytes
 
@@ -197,8 +198,8 @@ def place_shards(partition, mesh: Mesh) -> list:
             n_sites=int(fields["site_ra"].shape[0]))
         shards.append(ShardIndex(
             dix=dix,
-            ref_key=torch.from_numpy(stacked["ref_key"][d]).to(dev),
-            snp_key=torch.from_numpy(stacked["snp_key"][d]).to(dev),
+            ref_key=upload_array(stacked["ref_key"][d], dev),
+            snp_key=upload_array(stacked["snp_key"][d], dev),
             ref_bounds=r["ref_bounds"], snp_bounds24=r["snp_bounds24"],
             ref_owned=int(owned["ref"][d]), snp_owned=int(owned["snp"][d]),
             ref_total=int(totals["ref"][d]),

@@ -69,23 +69,53 @@ class TorchDeviceIndex:
                    for f in DEVICE_FIELDS)
 
 
+STAGE_BYTES = 1 << 28   # one pinned staging buffer of upload_array
+
+
+def upload_array(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor of the same dtype and bits on ``device``.
+    On the CPU without a copy (a read-only memory map is copied). To a CUDA
+    device in STAGE_BYTES chunks through two pinned buffers in turn, each
+    refilled once its copy to the card is done: the host never copies the
+    whole array (a 34 GB hash table, a memory-mapped index), and the card's
+    copies run at the pinned rate while the host fills the other buffer."""
+    a = np.ascontiguousarray(a)
+    if device.type == "cpu":
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+    out = torch.empty(a.shape, device=device,
+                      dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+    src = a.reshape(-1).view(np.uint8)
+    n = src.shape[0]
+    if n == 0:
+        return out
+    dst = out.view(-1).view(torch.uint8)
+    bufs = [torch.empty(min(STAGE_BYTES, n), dtype=torch.uint8,
+                        pin_memory=True) for _ in range(2)]
+    done = [None, None]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        for i, s in enumerate(range(0, n, STAGE_BYTES)):
+            k = i % 2
+            if done[k] is not None:
+                done[k].synchronize()
+            m = min(STAGE_BYTES, n - s)
+            bufs[k].numpy()[:m] = src[s:s + m]
+            dst[s:s + m].copy_(bufs[k][:m], non_blocking=True)
+            done[k] = torch.cuda.Event()
+            done[k].record(stream)
+        for ev in done:
+            if ev is not None:
+                ev.synchronize()
+    return out
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint32 host array -> int32 tensor with the same bits on ``device``.
-    CUDA uploads go in bounded chunks, so a read-only memory map is never
-    copied whole on the host."""
+    """uint32 host array -> int32 tensor with the same bits on ``device``
+    (``upload_array``)."""
     a = np.ascontiguousarray(a)
     if a.dtype != np.uint32:
         raise TypeError(f"device table must be uint32, got {a.dtype}")
-    a = a.view(np.int32)
-    if device.type == "cpu":
-        return torch.from_numpy(a if a.flags.writeable else a.copy())
-    out = torch.empty(a.shape, dtype=torch.int32, device=device)
-    flat_out = out.view(-1)
-    flat = a.reshape(-1)
-    step = 1 << 26
-    for s in range(0, flat.shape[0], step):
-        flat_out[s:s + step].copy_(torch.from_numpy(np.array(flat[s:s + step])))
-    return out
+    return upload_array(a.view(np.int32), device)
 
 
 def from_numpy(fields: dict, statics: dict,

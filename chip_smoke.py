@@ -76,14 +76,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    vote call (at most 3) and of one forward step are counted with
    torch.profiler, the step in a process of its own, with the vote
    kernel's own time there.
-8. routed -- the same workload, untuned, through the sharded-dictionary
+8. geno_bench -- the port's measurement entry points, each a user's
+   command line (``python -m vargeno_tpu_torch.tools.<tool>``) in a process
+   of its own on the real phase's dataset and index (nothing built again),
+   alone on the card: ``bench`` (reads/s as the median of clean passes
+   bracketed by device-rate probes, the dispatch mode calibrated, the
+   bench phase's gather rates handed over through its cache; its JSON
+   line is printed with the card's name and power limit; at least 5
+   passes, no overflow, the vote kernel launched, both roofline fractions
+   in (0, 1.05]), ``bench_cohort --donors 8``, ``profile_step`` (the
+   stage table of the first forward batch) and ``trace_step`` (a steady
+   pass under torch.profiler: device operations, the device's idle share,
+   the top kernels). The bench's and every donor's counts must equal the
+   real phase's at every site.
+9. routed -- the same workload, untuned, through the sharded-dictionary
    runner at D = 1 and D = 2 once the hash-table index is freed: counts
    equal to the hash-table pass's, no overflow, the vote kernel launched;
    reads/s, escalations, route_overflow, peak device memory, the index's
    device bytes; the device operations of one routed forward step (own
    process); the oracle spot check (2,048 reads through the sequential
    oracle and the D = 1 runner, all 500,000 sites' counts equal).
-9. multihost -- multi-process geno (dist/multihost.py), each process a
+10. multihost -- multi-process geno (dist/multihost.py), each process a
    fresh interpreter (``--mh-worker``), each cluster under its own time
    limit: the mini runs (data-parallel queued, inline dual, sharded
    dictionary, forced escalation, a checkpoint stop) on 2 processes naming
@@ -93,7 +106,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    equal to the hash-table pass's; vote launches, peak device memory and
    index bytes per process. Two processes on one card check the protocol
    and a shard's memory; they are not a deployment.
-10. fuzz  -- the differential fuzzer (tools/fuzz_diff.py) on seeds fixed
+11. fuzz  -- the differential fuzzer (tools/fuzz_diff.py) on seeds fixed
    in advance: seeds 0-23 through GenoRunner as each seed's draw says, and
    the same fixtures through the replicated mesh at D = 2 and the sharded
    dictionary at D = 1 and D = 2; seeds 0 and 1 on 2 processes x 1 shard
@@ -103,14 +116,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    oracle's at every site, with no overflow left and the vote kernel
    launched. Prints a line a runner (seeds, mismatches, escalations, vote
    launches, seconds) and the phase's seconds.
-11. genome -- genome scale: a 300 Mb genome, 3,000,000 SNPs, 262,144 reads
+12. genome -- genome scale: a 300 Mb genome, 3,000,000 SNPs, 262,144 reads
    of 101 bp at batch_reads=32768 (the JAX package's mid-scale point).
    (a) synthesis and the index build (tools/rehearse_wgs.py, host-only)
    and (e) the kill / resume endurance over 2,097,152 more reads
    (tools/endurance_wgs.py: three fresh interpreters on the sharded
    dictionary at D = 1, leg B SIGKILLed at a checkpoint past half the
    stream, leg C's VCF byte-identical to leg A's) run in a session of their
-   own beside phases 5, 6 and 10, (e) only once phases 3 and 4 are over;
+   own beside phases 5, 6 and 11, (e) only once phases 3 and 4 are over;
    then (b) the hash-table runner (host derivation of its 34 GB table,
    upload, reads/s, peak device memory, index bytes, the bare vote launch
    on a 300 Mb step's records), (c) the sharded dictionary at D = 1, its
@@ -119,12 +132,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    oracle, every site equal). No overflow may be left and the vote kernel
    must launch in every run.
 
-Phase order: 1, 2, then 3-6 and 10 beside genome (a) and (e) and beside
+Phase order: 1, 2, then 3-6 and 11 beside genome (a) and (e) and beside
 the making of phase 7's dataset and index (a process of its own, host
-only), then 7-9 and genome (b)-(d); phases 7-9 never run beside those
+only), then 7-10 and genome (b)-(d); phases 7-10 never run beside those
 processes, so their reads/s stays comparable with earlier runs. The log
-gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries phase 8's and phase 9's
-numbers, ``{"fuzz": ...}`` phase 10's, ``{"genome": ...}`` phase 11's.
+gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries phase
+9's and phase 10's numbers, ``{"geno_bench": ...}`` phase 8's, ``{"fuzz":
+...}`` phase 11's, ``{"genome": ...}`` phase 12's.
 
 cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    runner (the second warm), every VCF equal to the one-card hash-table
@@ -152,9 +166,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures", "mini")
 CACHE = os.path.join(ROOT, ".smoke_cache")
 
-# bench.py's workload
-GENOME_MB, N_SNPS, N_READS, READ_LEN = 48, 500_000, 262_144, 101
-ERR_FRAC, SEED, BATCH, HT_LOAD = 0.15, 20260817, 32768, 0.24
+# bench.py's workload (its read length, error fraction and seed are those
+# of vargeno_tpu_torch/tools/bench.py, which makes the dataset)
+GENOME_MB, N_SNPS, N_READS, BATCH, HT_LOAD = 48, 500_000, 262_144, 32768, 0.24
+GENO_BENCH_DONORS = 8   # phase geno_bench's cohort
 # (E, B, C, must overflow); the first is the main path's default shape
 KERNEL_SHAPES = [(96, 32768, 32, False), (96, 32768, 64, False),
                  (8, 32768, 32, False), (32, 4096, 16, True),
@@ -189,15 +204,6 @@ WGS_CHECKPOINT_EVERY = 8   # endurance checkpoints: every 262,144 reads
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"],
-                       capture_output=True, text=True, timeout=60)
-    if r.returncode != 0:
-        raise RuntimeError("nvidia-smi failed: " + r.stderr)
-    return "; ".join(r.stdout.strip().splitlines())
 
 
 # ----------------------------------------------------------------------
@@ -375,15 +381,18 @@ def time_vote_on_step(phase: str, card: str, records, C) -> dict:
     n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
     raw_ms = device_ms(go, DEVICE, reps=20)
     st_ms = stream_ms(go)
+    plain_ms = device_ms(lambda: vote_scan_records_plain(*records, C),
+                         DEVICE, reps=3)
     log(phase, f"[{card}] vote on the first forward batch's records, (E, "
                f"B, C) = {(E, B, C)}, {n_ev} events (most in a read "
                f"{int(records[2].max())}), row stride "
                f"{records[0].stride(0)}: bare launch {raw_ms:.4f} ms "
                f"between CUDA events round one call, {st_ms:.4f} "
                f"ms a launch in a stream of 50 (no less than the host's "
-               f"time to issue one), bound {b_ms:.4f} ms by {b_by}")
+               f"time to issue one), bound {b_ms:.4f} ms by {b_by}; the "
+               f"plain version {plain_ms:.4f} ms")
     return dict(shape=(E, B, C), events=n_ev, raw_ms=raw_ms, stream_ms=st_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms)
 
 
 def phase_kernel_vote():
@@ -814,41 +823,40 @@ def phase_mesh():
            f"on the sharded dictionary at D = 2", resumed, t0)
 
 
-def make_dataset(d):
-    import numpy as np
+def real_workload():
+    """The real phase's workload: the bench tool's, cached here."""
+    from vargeno_tpu_torch.tools.bench import Workload
 
-    from vargeno_tpu_torch.testing import synth_genome, write_inputs
-
-    fa, vcf, fq = (os.path.join(d, n)
-                   for n in ("genome.fa", "snps.vcf", "reads.fq"))
-    marker = os.path.join(d, "ready")
-    if not os.path.exists(marker):
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(SEED)
-        genome = synth_genome(rng, sizes=(GENOME_MB * 1_000_000,),
-                              names=("chrB1",))
-        write_inputs(d, rng, genome, n_snps=N_SNPS, n_reads=N_READS,
-                     read_len=READ_LEN, err_frac=ERR_FRAC)
-        with open(marker, "w") as f:
-            f.write("ok")
-        log("real", f"dataset written in {time.perf_counter() - t0:.2f} s")
-    return fa, vcf, fq
+    d, prefix = real_paths()
+    wl = Workload(cache=d, mb=GENOME_MB, snps=N_SNPS, reads=N_READS,
+                  batch=BATCH)
+    if wl.prefix != prefix:
+        raise RuntimeError(f"the bench tool's index prefix {wl.prefix} is "
+                           f"not {prefix}")
+    return wl
 
 
 def prepare_real() -> int:
-    """The real phase's dataset and index, made in a process of its own
-    (``start_real_prep``) beside the phases that time no reads/s; prints
-    one JSON line ``{"real_prep": ...}``: the seconds of each, null where
-    the cache already held it."""
-    import vargeno_tpu_torch.testing  # noqa: F401 - not in the seconds
+    """The real phase's dataset and index, made by the bench tool's own
+    functions (so its ``ibuild.json`` records the build) in a process of its
+    own (``start_real_prep``) beside the phases that time no reads/s;
+    prints one JSON line ``{"real_prep": ...}``: the seconds of each, null
+    where the cache already held it."""
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.tools import bench
 
-    d, prefix = real_paths()
-    os.makedirs(d, exist_ok=True)
-    fresh = not os.path.exists(os.path.join(d, "ready"))
-    t0 = time.perf_counter()
-    fa, vcf, _ = make_dataset(d)
-    dataset_s = time.perf_counter() - t0 if fresh else None
-    build_s = build_or_load_index(fa, vcf, prefix, "real")
+    wl = real_workload()
+    dataset_s = build_s = None
+    if not os.path.exists(wl.path("ready")):
+        t0 = time.perf_counter()
+        bench.build_dataset(wl)
+        dataset_s = time.perf_counter() - t0
+        log("real", f"dataset written in {dataset_s:.2f} s")
+    if not store.exists(wl.prefix):
+        t0 = time.perf_counter()
+        bench.build_index(wl)
+        build_s = time.perf_counter() - t0
+        log("real", f"index build {build_s:.2f} s")
     print(json.dumps({"real_prep": dict(dataset_s=dataset_s,
                                         build_s=build_s)}), flush=True)
     return 0
@@ -868,10 +876,11 @@ def start_real_prep():
 
 
 def real_paths():
-    """The real phase's cache directory and index prefix."""
-    d = os.path.join(CACHE, f"bench{GENOME_MB}mb_{N_SNPS}snp_{N_READS}r_"
-                            f"e{ERR_FRAC}_s{SEED}")
-    return d, os.path.join(d, "idx")
+    """The real phase's cache directory and index prefix, in the bench
+    tool's layout. Worked out without importing the package:
+    ``--step-ops-of`` imports it from another checkout."""
+    d = os.path.join(CACHE, f"bench{GENOME_MB}mb_{N_SNPS}snp_{N_READS}r")
+    return d, os.path.join(d, "bench")
 
 
 def inside_checkout(path: str) -> str:
@@ -1158,6 +1167,117 @@ def phase_real(card: str, gather_rates: dict, parent: str | None,
                 real_kernel_us=mine["vote_kernel_us"],
                 kernel_us=mine["eb_vote_kernel_us"], parent=theirs,
                 vote_call_ops=vote_ops, step_ops=mine["step_ops"])
+
+
+def run_tool(tag: str, module: str, args, env: dict, timeout: float) -> str:
+    """``python -m vargeno_tpu_torch.tools.<module> args`` from the
+    checkout's root in a process of its own; its stderr lines are logged
+    under ``tag``. Returns its stdout; a non-zero exit fails the phase."""
+    r = subprocess.run([sys.executable, "-m",
+                        f"vargeno_tpu_torch.tools.{module}", *args],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    for line in r.stderr.splitlines():
+        log(tag, f"{module}: {line}")
+    if r.returncode != 0:
+        raise RuntimeError(f"{tag}: {module} exited {r.returncode}:\n"
+                           + r.stdout[-2000:])
+    return r.stdout
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_geno_bench(card: str, gather_rates: dict, real: dict) -> dict:
+    """The port's measurement entry points on the real phase's dataset and
+    index (nothing built again), each a user's command line in a process of
+    its own, alone on the card: (a) ``tools.bench`` (the headline reads/s
+    line; the bench phase's gather rates handed over through its cache);
+    (b) ``tools.bench_cohort --donors 8``; (c) ``tools.profile_step`` (the
+    stage table of the first forward batch); (d) ``tools.trace_step`` (a
+    steady pass under torch.profiler: device operations, idle share, top
+    kernels). The bench's and every donor's counts must equal phase real's
+    at every site."""
+    import numpy as np
+    import torch
+
+    wl = real_workload()
+    torch.cuda.empty_cache()   # the real phase's blocks, for the tools
+    t_phase = time.perf_counter()
+    with open(wl.path("gather_rates.json"), "w") as f:
+        json.dump(gather_rates, f)
+    env = dict(os.environ, VGT_BENCH_CACHE=wl.cache,
+               VGT_BENCH_MB=str(wl.mb), VGT_BENCH_SNPS=str(wl.snps),
+               VGT_BENCH_READS=str(wl.reads), VGT_BENCH_BATCH=str(wl.batch),
+               VGT_BENCH_PASSES=str(wl.passes))
+    rc, ac = real["counts"]
+
+    def same(tag, ref, alt):
+        if not (np.array_equal(ref, rc) and np.array_equal(alt, ac)):
+            raise AssertionError(f"geno_bench: the {tag}'s counts differ "
+                                 f"from phase real's")
+
+    t0 = time.perf_counter()
+    line = last_json(run_tool("geno_bench", "bench", [], env, 600))
+    bench_s = time.perf_counter() - t0
+    log("geno_bench", f"[{card}] bench line ({bench_s:.1f} s): "
+                      f"{json.dumps(line)}")
+    if line["passes_total"] < 5:
+        raise AssertionError(f"geno_bench: {line['passes_total']} passes")
+    if line["vote_launches"] <= 0:
+        raise AssertionError("geno_bench: the bench never launched the vote "
+                             "kernel")
+    for k in ("lane_roofline_frac", "bw_roofline_frac"):
+        if not (line[k] is not None and 0 < line[k] <= 1.05):
+            raise AssertionError(f"geno_bench: {k} = {line[k]}")
+    got = np.load(wl.path("bench_counts.npz"))
+    same("bench", got["ref"], got["alt"])
+
+    t0 = time.perf_counter()
+    cohort = last_json(run_tool("geno_bench", "bench_cohort",
+                                ["--donors", str(GENO_BENCH_DONORS)], env,
+                                600))
+    cohort_s = time.perf_counter() - t0
+    log("geno_bench", f"[{card}] cohort line ({cohort_s:.1f} s): "
+                      f"{json.dumps(cohort)}")
+    if cohort["total_reads"] != GENO_BENCH_DONORS * wl.reads \
+            or cohort["vote_launches"] <= 0:
+        raise AssertionError(f"geno_bench: cohort {cohort}")
+    got = np.load(wl.path("cohort_counts.npz"))
+    for i in range(GENO_BENCH_DONORS):
+        same(f"cohort donor d{i}", got[f"ref_d{i}"], got[f"alt_d{i}"])
+
+    t0 = time.perf_counter()
+    text = run_tool("geno_bench", "profile_step", [], env, 300)
+    profile_s = time.perf_counter() - t0
+    for row in text.strip().splitlines()[:-1]:
+        log("geno_bench", f"profile_step: {row}")
+    profile = last_json(text)["profile_step"]
+
+    t0 = time.perf_counter()
+    text = run_tool("geno_bench", "trace_step", [], env, 600)
+    trace_s = time.perf_counter() - t0
+    for row in text.strip().splitlines()[:-1][:24]:
+        log("geno_bench", f"trace_step: {row}")
+    tr = last_json(text)["trace_step"]
+    if not (tr["device_ops"] > 0 and 0 <= tr["idle_share"] < 1):
+        raise AssertionError(f"geno_bench: trace {tr['device_ops']} device "
+                             f"operations, idle share {tr['idle_share']}")
+    out = dict(card=card, bench=line, cohort=cohort, profile=profile,
+               trace={k: tr[k] for k in ("reads", "pass_s", "device_ops",
+                                         "device_busy_us", "window_us",
+                                         "idle_share")},
+               top_kernels=tr["device_by_name"][:10],
+               tool_s=dict(bench=bench_s, cohort=cohort_s,
+                           profile=profile_s, trace=trace_s),
+               seconds=time.perf_counter() - t_phase)
+    log("geno_bench", f"[{card}] idle share of a steady pass "
+                      f"{tr['idle_share']} ({tr['device_ops']} device "
+                      f"operations, {tr['device_busy_us'] / 1e3:.1f} ms busy "
+                      f"in {tr['window_us'] / 1e3:.1f} ms); phase geno_bench "
+                      f"{out['seconds']:.1f} s")
+    return out
 
 
 def phase_routed(card: str, ht: dict) -> dict:
@@ -2095,10 +2215,12 @@ def phase_cards(card: str) -> dict:
     n = torch.cuda.device_count()
     if n < 2:
         raise RuntimeError(f"--all-cards needs 2 or more cards, {n} visible")
-    d, prefix = real_paths()
-    os.makedirs(d, exist_ok=True)
-    fa, vcf, fq = make_dataset(d)
-    build_or_load_index(fa, vcf, prefix, "cards")
+    from vargeno_tpu_torch.tools import bench
+
+    wl = real_workload()
+    d, prefix, vcf, fq = wl.cache, wl.prefix, wl.vcf, wl.fq
+    bench.build_dataset(wl)
+    bench.build_index(wl)
     L, K = autosize_shapes(fq)
     cfg = dict(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
                ht_target_load=HT_LOAD)
@@ -2252,6 +2374,7 @@ def main() -> int:
     try:
         from vargeno_tpu_torch import native
         from vargeno_tpu_torch.kernels import _build, gather, vote
+        from vargeno_tpu_torch.tools.bench import card_line
     except ImportError as e:
         print(f"error: the vargeno_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -2320,6 +2443,7 @@ def main() -> int:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
     real = timed("real", phase_real, card, rates, parent, real_prep)
+    geno_bench = timed("geno_bench", phase_geno_bench, card, rates, real)
     routed = timed("routed", phase_routed, card, real)
     mh = timed("multihost", phase_multihost, card, routed)
     genome = timed("genome", phase_genome, card, genome_bg)
@@ -2332,6 +2456,7 @@ def main() -> int:
                        "index_bytes": real["dix_bytes"],
                        "step_ops": real["step_ops"]},
         **routed, "multihost": mh}}), flush=True)
+    print(json.dumps({"geno_bench": geno_bench}), flush=True)
     print(json.dumps({"fuzz": fuzz}), flush=True)
     print(json.dumps({"genome": genome}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
@@ -2341,6 +2466,8 @@ def main() -> int:
          "source": "vargeno_tpu_torch/csrc/vote.cu",
          "replaces": "vargeno_tpu/engine/pallas_vote.py:26",
          "launches": real["launches"], "max_abs_err": vote_err,
+         "bench_launches": geno_bench["bench"]["vote_launches"],
+         "cohort_launches": geno_bench["cohort"]["vote_launches"],
          "routed_launches": {k: routed[k]["vote_launches"]
                              for k in ("D1", "D2")},
          "multihost_launches_per_process": {

@@ -1,0 +1,446 @@
+"""The port's measurement entry points (``vargeno_tpu_torch/tools``: bench,
+bench_cohort, bench_index_build, profile_step, trace_step,
+summarize_trace) and the CLI pieces they brought, on the CPU at a tiny
+workload (0.2 Mb, 2,000 SNPs, 4,096 reads, batch 512). Counts are held
+exactly against the JAX package's runners on the same files and index
+(``jax_view``), and index files byte for byte against the JAX CLI's."""
+
+import dataclasses
+import functools
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+from torch_index_share import FIX, bench_cache, jax_view, small_index
+
+from vargeno_tpu import cli as j_cli
+from vargeno_tpu.config import GenoConfig as JConfig
+from vargeno_tpu.engine.cohort import CohortRunner as JCohort
+from vargeno_tpu.engine.geno import GenoRunner as JRunner
+from vargeno_tpu.index import build as j_build
+from vargeno_tpu_torch import cli
+from vargeno_tpu_torch.config import GenoConfig
+from vargeno_tpu_torch.engine.batch import make_batch_processor
+from vargeno_tpu_torch.engine.device_index import build_device_index
+from vargeno_tpu_torch.engine.geno import GenoRunner, _encoder, upload
+from vargeno_tpu_torch.index import build as t_build
+from vargeno_tpu_torch.index import store
+from vargeno_tpu_torch.io.fastq import iter_read_batches
+from vargeno_tpu_torch.tools import (bench, bench_cohort, bench_index_build,
+                                     profile_step, summarize_trace,
+                                     trace_step)
+from vargeno_tpu_torch.tools.bench_gather import bench as gather_bench
+
+torch.set_num_threads(2)
+
+LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "passes_clean",
+             "passes_total", "pass_spread", "device_rate", "retry_frac",
+             "index_build_s", "index_build_vs", "lane_roofline_frac",
+             "bw_roofline_frac", "device", "vote_launches"}
+SMALL_BLOOM = dict(ref_bf_bytes=1 << 21, ref_lite_bf_bytes=1 << 21,
+                   snp_bf_bytes=1 << 18)
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    """The tiny workload's cache (dataset, small-Bloom index, the host's
+    gather rates under the full-size key names the roofline reads) and the
+    environment that names it."""
+    cache = str(tmp_path_factory.mktemp("bench"))
+    env = bench_cache(cache)
+    rates = gather_bench("cpu", table_mb=4, shrink=64, reps=2, verbose=False)
+    n = (1 << 20) // 64
+    rates["word_gather_1048576"] = rates[f"word_gather_{n}"]
+    rates["row_gather_1048576"] = rates[f"row_gather_{n}"]
+    with open(os.path.join(cache, "gather_rates.json"), "w") as f:
+        json.dump(rates, f)
+    return env
+
+
+@pytest.fixture
+def wl(ws, monkeypatch):
+    for k, v in ws.items():
+        monkeypatch.setenv(k, v)
+    return bench.Workload.from_env()
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _jax_counts(runner):
+    return np.asarray(runner.ref_cnt), np.asarray(runner.alt_cnt)
+
+
+def _jax_config(cfg):
+    """The JAX package's config of the same field values."""
+    return JConfig(**{f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(GenoConfig)})
+
+
+def test_bench_line_and_counts_match_jax(wl, capsys):
+    assert bench.main(["--device", "cpu"]) == 0
+    line = _last_json(capsys.readouterr().out)
+    assert set(line) == LINE_KEYS
+    assert line["metric"] == "geno_throughput"
+    assert line["unit"] == "reads/sec/cpu" and line["device"] == "cpu"
+    assert line["passes_total"] >= 3 and line["value"] > 0
+    assert 0 < line["lane_roofline_frac"] and 0 < line["bw_roofline_frac"]
+    assert line["index_build_s"] is not None
+    assert line["vote_launches"] == 0   # the host runs the plain vote
+    got = np.load(wl.path("bench_counts.npz"))
+    # the JAX runner on the same files, index and configuration
+    jrun = JRunner(jax_view(store.load(wl.prefix)),
+                   _jax_config(bench.bench_config(wl)))
+    jrun.consume_fastq(wl.fq)
+    assert not {k: v for k, v in jrun.stats_totals.items()
+                if "overflow" in k and v}
+    rc, ac = _jax_counts(jrun)
+    np.testing.assert_array_equal(got["ref"], rc)
+    np.testing.assert_array_equal(got["alt"], ac)
+    assert int(got["ref"].sum() + got["alt"].sum()) > 0
+
+
+def test_bench_fails_on_an_overflow_left(wl, monkeypatch):
+    """Counts that may diverge from the reference are no measurement: with
+    escalation off and a one-event cap, the bench raises."""
+    orig = bench.bench_config
+    monkeypatch.setattr(bench, "bench_config", lambda w: dataclasses.replace(
+        orig(w), events_per_read=1, auto_retry_max=0))
+    monkeypatch.setenv("VGT_BENCH_MODE", "queued")
+    with pytest.raises(AssertionError, match="overflow counters left"):
+        bench.run(wl, "cpu")
+
+
+# --- pick_runner's calibration, on a fake timer ---
+
+class _Fake:
+    """Stand-in runners and timer: ``rates[mode]`` is a list of the rates
+    its passes read, in turn; ``probe`` the device rate it reports."""
+
+    def __init__(self, rates, probe=1000.0, fail=()):
+        self.rates = {m: list(r) for m, r in rates.items()}
+        self.probe_rate = probe
+        self.fail = fail
+        self.made = []
+        self.probed = 0
+
+    def make(self, mode):
+        if mode in self.fail:
+            raise RuntimeError(f"{mode} failed to build")
+        self.made.append(mode)
+        return mode
+
+    def time_pass(self, runner):
+        return self.rates[runner].pop(0)
+
+    def probe(self, runner):
+        self.probed += 1
+        return self.probe_rate
+
+
+def _calibrate(fake, path, **kw):
+    return bench.calibrate(fake.make, fake.time_pass, fake.probe, path,
+                           "card|512|4096", **kw)
+
+
+def _write(path, **cal):
+    with open(path, "w") as f:
+        json.dump(dict(key="card|512|4096", **cal), f)
+
+
+def test_calibrate_cache_miss_times_every_mode_and_caches(tmp_path):
+    path = str(tmp_path / "calib.json")
+    fake = _Fake({"queued": [100], "queued_tuned": [300],
+                  "inline_dual": [200]})
+    pick = _calibrate(fake, path)
+    assert (pick.mode, pick.rate, pick.runner) == ("queued_tuned", 300,
+                                                   "queued_tuned")
+    assert fake.made == list(bench.MODES)
+    cal = json.load(open(path))
+    assert cal == dict(key="card|512|4096", mode="queued_tuned",
+                       calib_rate=300, device_rate=1000.0)
+
+
+def test_calibrate_cache_hit_times_the_cached_mode_only(tmp_path):
+    path = str(tmp_path / "calib.json")
+    _write(path, mode="inline_dual", calib_rate=200, device_rate=1000)
+    fake = _Fake({"inline_dual": [190]})
+    assert _calibrate(fake, path).mode == "inline_dual"
+    assert fake.made == ["inline_dual"]
+    # another key (card, batch or reads) is a miss
+    _write(path, mode="inline_dual", calib_rate=200, device_rate=1000)
+    fake = _Fake({"queued": [100], "queued_tuned": [90],
+                  "inline_dual": [80]})
+    assert bench.calibrate(fake.make, fake.time_pass, fake.probe, path,
+                           "other|512|4096").mode == "queued"
+    assert fake.made == list(bench.MODES)
+
+
+def test_calibrate_rechecks_an_outlier(tmp_path):
+    # queued_tuned reads 40 (< half of 100) once, then 150: re-timed, kept
+    fake = _Fake({"queued": [100], "queued_tuned": [40, 150],
+                  "inline_dual": [90]})
+    pick = _calibrate(fake, str(tmp_path / "calib.json"))
+    assert (pick.mode, pick.rate) == ("queued_tuned", 150)
+    assert fake.rates["queued_tuned"] == []
+
+
+def test_calibrate_device_probe_guard_keeps_the_cache(tmp_path):
+    path = str(tmp_path / "calib.json")
+    _write(path, mode="queued", calib_rate=1000, device_rate=5000)
+    before = open(path).read()
+    # the cached winner at 0.5 x its recorded rate, and the device probe at
+    # 0.5 x its own: the card is shared, so no re-calibration
+    fake = _Fake({"queued": [500]}, probe=2500)
+    pick = _calibrate(fake, path)
+    assert pick.mode == "queued" and fake.made == ["queued"]
+    assert open(path).read() == before
+
+
+def test_calibrate_recalibrates_a_regressed_winner(tmp_path):
+    path = str(tmp_path / "calib.json")
+    _write(path, mode="queued", calib_rate=1000, device_rate=5000)
+    # the probe reads as recorded: the choice is stale, not the card busy
+    fake = _Fake({"queued": [500], "queued_tuned": [800],
+                  "inline_dual": [450]}, probe=5000)
+    pick = _calibrate(fake, path)
+    assert pick.mode == "queued_tuned"
+    assert fake.made == ["queued", "queued_tuned", "inline_dual"]
+    assert json.load(open(path))["mode"] == "queued_tuned"
+
+
+@pytest.mark.parametrize("forced", [None, "queued"])
+def test_calibrate_failing_mode_raises(tmp_path, forced):
+    fake = _Fake({"queued": [100], "queued_tuned": [200],
+                  "inline_dual": [300]}, fail=("queued",))
+    with pytest.raises(RuntimeError, match="queued failed"):
+        _calibrate(fake, str(tmp_path / "calib.json"), forced=forced)
+    assert not os.path.exists(tmp_path / "calib.json")
+
+
+@pytest.mark.parametrize("mode", bench.MODES)
+def test_retry_frac_counts_the_reverse_passes(wl, mode):
+    """The queued modes' measured retry fraction; 1 for inline dual, whose
+    every read runs both orientations."""
+    index = store.load(wl.prefix)
+    cfg = bench.bench_config(wl)
+    runner = bench.make_runner(index, build_device_index(
+        index, "cpu", cfg.ht_target_load), wl, mode, "cpu")
+    runner.consume_fastq(wl.fq)
+    want = (runner.n_retry_reads / runner.n_reads
+            if mode != "inline_dual" else 1.0)
+    assert bench.retry_frac(runner) == want
+    if mode != "inline_dual":
+        assert 0.3 < want < 0.7   # about half the reads are reverse-strand
+    rep = bench.roofline_report(runner, 1000.0, None)
+    assert rep["lane_roofline_frac"] is None and rep["bw_roofline_frac"] > 0
+
+
+def test_unknown_mode_raises(wl):
+    with pytest.raises(ValueError, match="unknown dispatch mode"):
+        bench.make_runner(None, None, wl, "no_pallas", "cpu")
+
+
+def test_dataset_of_another_workload_is_refused(wl):
+    other = dataclasses.replace(wl, reads=wl.reads + 1)
+    with pytest.raises(ValueError, match="holds the dataset"):
+        bench.build_dataset(other)
+
+
+# --- bench_cohort ---
+
+def test_cohort_donors_equal_one_pass_and_jax_cohort(wl, capsys):
+    assert bench_cohort.main(["--device", "cpu", "--donors", "3"]) == 0
+    line = _last_json(capsys.readouterr().out)
+    assert set(line) == {"metric", "donors", "total_reads", "seconds",
+                         "reads_per_sec", "donors_per_hour_at_6x_wgs",
+                         "device", "vote_launches"}
+    assert line["donors"] == 3 and line["total_reads"] == 3 * wl.reads
+    got = np.load(wl.path("cohort_counts.npz"))
+    index = store.load(wl.prefix)
+    one = GenoRunner(index, bench.bench_config(wl), device="cpu")
+    one.consume_fastq(wl.fq)
+    rc, ac = one.host_counts()
+    for d in ("d0", "d1", "d2"):
+        np.testing.assert_array_equal(got[f"ref_{d}"], rc)
+        np.testing.assert_array_equal(got[f"alt_{d}"], ac)
+    c = bench.bench_config(wl)
+    jc = JCohort(jax_view(index), ["a", "b"], JConfig(
+        batch_reads=c.batch_reads, max_read_len=c.max_read_len,
+        max_kmers_per_read=c.max_kmers_per_read, auto_tune=True,
+        tune_batches=2))
+    for name in ("a", "b"):
+        jc.consume_sample(name, wl.fq)
+        jrc, jac = (np.asarray(x) for x in jc.counts[name])
+        np.testing.assert_array_equal(jrc, rc)
+        np.testing.assert_array_equal(jac, ac)
+
+
+# --- bench_index_build and the CLI's index / geno / genotype pieces ---
+
+def _same_tree(a: str, b: str) -> None:
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b))
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, \
+                open(os.path.join(b, n), "rb") as fb:
+            while True:
+                x, y = fa.read(1 << 24), fb.read(1 << 24)
+                assert x == y, n
+                if not x:
+                    break
+
+
+def test_index_build_tool_matches_jax_index(tmp_path, capsys):
+    d = tmp_path / "ds"
+    d.mkdir()
+    for n in ("genome.fa", "snps.vcf"):
+        shutil.copy(os.path.join(FIX, n), d / n)
+    try:
+        assert bench_index_build.main(["--dataset", str(d),
+                                       "--reps", "1"]) == 0
+        out = _last_json(capsys.readouterr().out)
+        assert out["ours_s"] > 0 and len(out["ours_all_s"]) == 1
+        assert out["ref_index_build_s"] == 104.26
+        assert out["index_build_vs"] == round(104.26 / out["ours_s"], 2)
+        assert bench_index_build.missing_artifacts(str(d / "ibench"),
+                                                   False) == []
+        # the JAX package's index of the same files, at the same (the
+        # reference's) Bloom geometry
+        j_build.build_index(str(d / "genome.fa"), str(d / "snps.vcf"),
+                            str(d / "jax"))
+        _same_tree(str(d / "ibench.vgt"), str(d / "jax.vgt"))
+    finally:
+        shutil.rmtree(d)
+
+
+def test_index_build_tool_reports_missing_artifacts(tmp_path):
+    p = str(tmp_path / "x")
+    assert bench_index_build.missing_artifacts(p, True) == [
+        ".vgt"] + list(bench_index_build.REFERENCE_FORMAT)
+    os.makedirs(p + ".vgt")
+    open(p + ".snp.bf", "w").close()
+    assert ".snp.bf" not in bench_index_build.missing_artifacts(p, True)
+    assert bench_index_build.missing_artifacts(p, False) == []
+
+
+def test_cli_index_reference_format_matches_jax(tmp_path, monkeypatch):
+    # both CLIs build at a small Bloom geometry (their build_index is
+    # looked up when the command runs)
+    monkeypatch.setattr(t_build, "build_index", functools.partial(
+        t_build.build_index, config=GenoConfig(**SMALL_BLOOM)))
+    monkeypatch.setattr(j_build, "build_index", functools.partial(
+        j_build.build_index, config=JConfig(**SMALL_BLOOM)))
+    fa, vcf = os.path.join(FIX, "genome.fa"), os.path.join(FIX, "snps.vcf")
+    ours, theirs = str(tmp_path / "t"), str(tmp_path / "j")
+    assert cli.main(["index", fa, vcf, ours, "--reference-format"]) == 0
+    assert j_cli.main(["index", fa, vcf, theirs, "--reference-format"]) == 0
+    for suf in bench_index_build.REFERENCE_FORMAT + (".chrlens",):
+        assert open(ours + suf, "rb").read() == \
+            open(theirs + suf, "rb").read(), suf
+    # the reference binary's own dictionaries of this fixture
+    for suf in (".ref.dict", ".snp.dict"):
+        assert open(ours + suf, "rb").read() == open(
+            os.path.join(FIX, "golden" + suf), "rb").read()
+    assert store.exists(ours)
+    # without the flag no reference-format file is written
+    plain = str(tmp_path / "p")
+    assert cli.main(["index", fa, vcf, plain]) == 0
+    assert not any(os.path.exists(plain + s)
+                   for s in bench_index_build.REFERENCE_FORMAT)
+
+
+def test_cli_no_stride_bug_matches_jax(tmp_path):
+    prefix = str(tmp_path / "idx")
+    store.save(prefix, small_index())
+    fq, vcf = os.path.join(FIX, "reads.fq"), os.path.join(FIX, "snps.vcf")
+    outs = {}
+    for tag, main, extra in (("t", cli.main, ["--device", "cpu"]),
+                             ("j", j_cli.main, [])):
+        for flag in ("--no-stride-bug", None):
+            out = str(tmp_path / f"{tag}{bool(flag)}.vcf")
+            assert main(["geno", prefix, fq, vcf, out, "--batch-reads",
+                         "512"] + extra + ([flag] if flag else [])) == 0
+            outs[tag, bool(flag)] = open(out).read()
+    assert outs["t", True] == outs["j", True]
+    assert outs["t", False] == outs["j", False] == open(
+        os.path.join(FIX, "golden_output.vcf")).read()
+
+
+def test_cli_genotype_is_a_noop_as_in_jax(capsys):
+    assert cli.main(["genotype", "a", "b", "c"]) == 0
+    ours = capsys.readouterr()
+    assert j_cli.main(["genotype", "a", "b", "c"]) == 0
+    theirs = capsys.readouterr()
+    assert ours.err == theirs.err and "no-op" in ours.err
+    assert ours.out == theirs.out == ""
+
+
+# --- profile_step, trace_step, summarize_trace ---
+
+def test_profile_step_prints_every_stage_and_equals_single_enc(wl, capsys):
+    assert profile_step.main(["--device", "cpu", "--reps", "2"]) == 0
+    text = capsys.readouterr().out
+    res = _last_json(text)["profile_step"]
+    for name, _ in profile_step.STAGES:
+        assert name in text
+        assert res["stages"][name]["ms"] is not None
+    st = res["stages"]
+    top = [n for n, depth in profile_step.STAGES
+           if depth == 1 and n != "remainder"]
+    assert st["remainder"]["ms"] == pytest.approx(
+        st["single_enc"]["ms"] - sum(st[n]["ms"] for n in top), abs=1e-3)
+    # the whole step's counts: single_enc on the first forward batch
+    cfg = bench.bench_config(wl)
+    dix = build_device_index(store.load(wl.prefix), "cpu",
+                             cfg.ht_target_load)
+    b = next(iter(iter_read_batches(wl.fq, cfg.batch_reads,
+                                    cfg.max_read_len,
+                                    cfg.max_kmers_per_read)))
+    args = upload(torch.device("cpu"),
+                  _encoder(cfg.max_kmers_per_read)(b.codes, b.n_kmers),
+                  b.qual)
+    z = torch.zeros(dix.n_sites + 1, dtype=torch.int32)
+    rc, ac, process, _, _ = make_batch_processor(dix, cfg).single_enc(
+        *args, z, torch.zeros_like(z))
+    assert res["counts"] == {"ref": int(rc.sum()), "alt": int(ac.sum()),
+                             "processed": int(process.sum())}
+    assert res["counts"]["processed"] > 0
+    assert res["shapes"]["B"] == cfg.batch_reads
+
+
+def test_summarize_trace_idle_share_of_synthetic_events():
+    ev = [dict(ph="X", cat="cpu_op", name="aten::add", ts=0, dur=100),
+          dict(ph="X", cat="kernel", name="k1", ts=10, dur=20),
+          dict(ph="X", cat="kernel", name="k1", ts=20, dur=20),   # overlaps
+          dict(ph="X", cat="gpu_memcpy", name="Memcpy HtoD", ts=60, dur=10),
+          dict(ph="X", cat="gpu_user_annotation", name="span", ts=0,
+               dur=100),
+          dict(ph="i", cat="kernel", name="instant", ts=5)]
+    s = summarize_trace.summarize(ev)
+    assert s["device_ops"] == 3 and s["device_busy_us"] == 40
+    assert s["window_us"] == 100 and s["idle_share"] == 0.6
+    assert s["device_by_name"][0] == ("k1", 40.0, 2)
+    assert s["host_ops"] == 2
+
+
+def test_trace_of_a_host_pass_has_no_device_time(wl, tmp_path, capsys):
+    res = trace_step.trace(wl, "cpu", str(tmp_path))
+    assert res["reads"] == wl.reads and res["device_ops"] == 0
+    assert res["idle_share"] is None and res["host_ops"] > 1000
+    names = {n for n, _, _ in res["host_by_name"]}
+    assert "aten::index_put_" in names
+    # on its own the summary refuses a trace without device time
+    assert summarize_trace.main([res["trace"]]) == 1
+    assert "no device operation" in capsys.readouterr().err
+
+
+def test_tools_refuse_cuda_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for tool in (bench, bench_cohort, profile_step, trace_step):
+        assert tool.main([]) == 1
+        assert "no CUDA device" in capsys.readouterr().err

@@ -7,12 +7,13 @@ machine without it:
 
 Each skips itself where there is no CUDA device."""
 
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
-from torch_index_share import FIX
+from torch_index_share import FIX, bench_cache
 from torch_index_share import small_index as build_small_index
 
 from vargeno_tpu_torch.config import GenoConfig
@@ -24,6 +25,7 @@ from vargeno_tpu_torch.engine import search
 from vargeno_tpu_torch.engine.batch import make_batch_processor
 from vargeno_tpu_torch.engine.cohort import CohortRunner
 from vargeno_tpu_torch.engine.geno import GenoRunner
+from vargeno_tpu_torch.index import store
 from vargeno_tpu_torch.io.fastq import iter_read_batches
 from vargeno_tpu_torch.kernels import gather as gather_mod
 from vargeno_tpu_torch.kernels import vote as vote_mod
@@ -32,7 +34,9 @@ from vargeno_tpu_torch.kernels.gather import (gather_rows_sum,
 from vargeno_tpu_torch.kernels.vote import (vote_scan, vote_scan_plain,
                                             vote_scan_records,
                                             vote_scan_records_plain)
-from vargeno_tpu_torch.tools import fuzz_diff
+from vargeno_tpu_torch.tools import bench as bench_tool
+from vargeno_tpu_torch.tools import (bench_cohort, fuzz_diff, profile_step,
+                                     trace_step)
 from vargeno_tpu_torch.tools.bench_gather import bench
 
 torch.set_num_threads(2)
@@ -484,3 +488,67 @@ def test_fuzz_seed_on_cuda_matches_oracle(cuda, seed, tmp_path):
     got = fuzz_diff.run_seed(seed, "cuda", tmpdir=str(tmp_path))
     assert got["ok"] and not got["overflow"], got
     assert got["vote_launches"] > 0
+
+
+@pytest.fixture(scope="module")
+def card_bench(tmp_path_factory):
+    """A tiny bench workload (0.2 Mb, 4,096 reads, batch 512) and its host
+    pass's counts; the environment that names it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the tools measure the card")
+    env = bench_cache(str(tmp_path_factory.mktemp("bench")))
+    wl = bench_tool.Workload(cache=env["VGT_BENCH_CACHE"], mb=0.2,
+                             snps=2000, reads=4096, batch=512)
+    host = GenoRunner(store.load(wl.prefix), bench_tool.bench_config(wl),
+                      device="cpu")
+    host.consume_fastq(wl.fq)
+    return env, host.host_counts()
+
+
+@pytest.fixture
+def bench_env(card_bench, monkeypatch):
+    env, counts = card_bench
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("VGT_BENCH_GATHER", "0")   # no gather bench here
+    return bench_tool.Workload.from_env(), counts
+
+
+def _last(capsys) -> dict:
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_bench_tool_on_cuda(bench_env, capsys):
+    """The bench on the card: the card's name on its line, the vote kernel
+    launched, counts equal to the host's pass."""
+    wl, (rc, ac) = bench_env
+    assert bench_tool.main([]) == 0
+    line = _last(capsys)
+    assert line["unit"] == "reads/sec/chip"
+    assert torch.cuda.get_device_name(0) in line["device"]
+    assert line["vote_launches"] > 0 and line["passes_total"] >= 3
+    assert line["lane_roofline_frac"] is None
+    # 4 decimals: a tiny workload's share of the bytes bound may round to 0
+    assert 0 <= line["bw_roofline_frac"] <= 1.05
+    got = np.load(wl.path("bench_counts.npz"))
+    np.testing.assert_array_equal(got["ref"], rc)
+    np.testing.assert_array_equal(got["alt"], ac)
+
+
+def test_cohort_profile_and_trace_tools_on_cuda(bench_env, capsys,
+                                                tmp_path):
+    wl, (rc, ac) = bench_env
+    assert bench_cohort.main(["--donors", "2"]) == 0
+    assert _last(capsys)["vote_launches"] > 0
+    got = np.load(wl.path("cohort_counts.npz"))
+    for d in ("d0", "d1"):
+        np.testing.assert_array_equal(got[f"ref_{d}"], rc)
+        np.testing.assert_array_equal(got[f"alt_{d}"], ac)
+    assert profile_step.main(["--reps", "3"]) == 0
+    res = _last(capsys)["profile_step"]
+    assert all(res["stages"][n]["ms"] > 0 for n, _ in profile_step.STAGES
+               if n != "remainder")
+    tr = trace_step.trace(wl, "cuda", str(tmp_path))
+    assert tr["device_ops"] > 0 and 0 <= tr["idle_share"] < 1
+    assert any("vote_kernel" in n for n, _, _ in tr["device_by_name"])
+    assert tr["reads"] == wl.reads

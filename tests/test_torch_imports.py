@@ -38,6 +38,11 @@ MODULES = [
     "vargeno_tpu_torch.tools.fuzz_diff",
     "vargeno_tpu_torch.tools.rehearse_wgs",
     "vargeno_tpu_torch.tools.endurance_wgs",
+    "vargeno_tpu_torch.tools.bench", "vargeno_tpu_torch.tools.bench_cohort",
+    "vargeno_tpu_torch.tools.bench_index_build",
+    "vargeno_tpu_torch.tools.profile_step",
+    "vargeno_tpu_torch.tools.trace_step",
+    "vargeno_tpu_torch.tools.summarize_trace",
 ]
 
 

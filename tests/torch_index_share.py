@@ -61,3 +61,30 @@ def head_fastq(src: str, dst: str, n: int) -> str:
     with open(dst, "w") as f:
         f.writelines(lines)
     return dst
+
+
+# a tiny bench workload (``vargeno_tpu_torch.tools.bench`` knobs)
+BENCH_KNOBS = dict(VGT_BENCH_MB="0.2", VGT_BENCH_SNPS="2000",
+                   VGT_BENCH_READS="4096", VGT_BENCH_BATCH="512",
+                   VGT_BENCH_PASSES="3", VGT_BENCH_MAX_EXTRA="2")
+
+
+def bench_cache(cache: str) -> dict:
+    """The tiny bench workload's dataset and index in ``cache``, the index
+    at a small Bloom geometry (built through the bench's own
+    ``build_index``, so its ``ibuild.json`` is there too). Returns the
+    environment that points the bench tools at it."""
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.tools import bench
+
+    k = BENCH_KNOBS
+    wl = bench.Workload(cache=cache, mb=float(k["VGT_BENCH_MB"]),
+                        snps=int(k["VGT_BENCH_SNPS"]),
+                        reads=int(k["VGT_BENCH_READS"]),
+                        batch=int(k["VGT_BENCH_BATCH"]),
+                        passes=int(k["VGT_BENCH_PASSES"]))
+    bench.build_dataset(wl)
+    bench.build_index(wl, GenoConfig(ref_bf_bytes=1 << 21,
+                                     ref_lite_bf_bytes=1 << 21,
+                                     snp_bf_bytes=1 << 18))
+    return dict(BENCH_KNOBS, VGT_BENCH_CACHE=cache)

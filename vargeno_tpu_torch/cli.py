@@ -2,8 +2,10 @@
 ``vargeno_tpu/cli.py``):
 
   python -m vargeno_tpu_torch.cli index  <ref.fa> <snps.vcf> <prefix>
+      [--reference-format]
   python -m vargeno_tpu_torch.cli geno   <prefix> <reads.fq> <snps.vcf> <out.vcf>
       [--device cuda|cpu] [--mesh N [--sharded-dict]] [--batch-reads N]
+      [--no-stride-bug]
       [--checkpoint PATH] [--limit-batches N] [--metrics PATH]
       [--no-auto-tune] [--inline-dual] [capacity flags]
       [--multihost HOST:PORT --num-processes P --process-id I
@@ -14,6 +16,7 @@
   python -m vargeno_tpu_torch.cli kmerc  <ref.fa>
   python -m vargeno_tpu_torch.cli filt   <prefix> <out_prefix>
   python -m vargeno_tpu_torch.cli vcfd | vcfbf | ucscd | ucscbf | encodebf | help
+  python -m vargeno_tpu_torch.cli genotype ...   (the reference's no-op)
 
 ``geno`` and ``cohort`` run on the GPU by default and stop with an error
 when there is none; the host runs them only with ``--device cpu``. ``--mesh
@@ -52,6 +55,9 @@ def _add_engine_flags(p):
     p.add_argument("--max-read-len", type=int, default=None,
                    help="padded read length (default: auto-sized from a "
                         "FASTQ peek, 128..992)")
+    p.add_argument("--no-stride-bug", action="store_true",
+                   help="disable replication of the reference's small-block "
+                        "scan pointer bug (qv.cc:359) - 'intended' behavior")
     g = p.add_argument_group("engine capacities (doubled and the batch "
                              "redone on overflow; see --auto-retry-max)")
     g.add_argument("--events-per-read", type=int, default=None)
@@ -81,7 +87,8 @@ def _config(args, fastqs):
     else:
         K = max(1, L // 32)
     kw = dict(batch_reads=args.batch_reads, max_read_len=L,
-              max_kmers_per_read=K, auto_tune=not args.no_auto_tune)
+              max_kmers_per_read=K, auto_tune=not args.no_auto_tune,
+              replicate_stride_bug=not args.no_stride_bug)
     for f in ("events_per_read", "candidates_per_read", "neighbor_item_frac",
               "probe_hit_cap", "agree_cap", "scan_slot_cap",
               "auto_retry_max"):
@@ -148,6 +155,8 @@ def _parser():
     p.add_argument("ref_fasta")
     p.add_argument("snp_vcf")
     p.add_argument("prefix")
+    p.add_argument("--reference-format", action="store_true",
+                   help="also write the reference's .dict/.bf binary formats")
 
     p = sub.add_parser("geno", help="genotype reads")
     p.add_argument("prefix")
@@ -206,6 +215,12 @@ def _parser():
     p = sub.add_parser("kmerc", help="count distinct LO32/LO40 k-mer halves "
                                      "(BF sizing tool, reference kmerc)")
     p.add_argument("ref_fasta")
+
+    p = sub.add_parser(
+        "genotype",
+        help="legacy 7-arg form; a NO-OP in the reference (the genotype() "
+             "call is commented out, src/qv.cc:2092) - use `geno`")
+    p.add_argument("legacy_args", nargs="*")
 
     p = sub.add_parser("oracle-geno",
                        help="run the sequential oracle engine (debug / "
@@ -289,7 +304,13 @@ def _main(argv=None):
     if args.cmd == "index":
         from .index.build import build_index
 
-        build_index(args.ref_fasta, args.snp_vcf, args.prefix)
+        build_index(args.ref_fasta, args.snp_vcf, args.prefix,
+                    write_reference_format=args.reference_format)
+        return 0
+
+    if args.cmd == "genotype":
+        print("`genotype` is a no-op in the reference binary "
+              "(src/qv.cc:2092); use `geno`.", file=sys.stderr)
         return 0
 
     if args.cmd in ("geno", "cohort"):

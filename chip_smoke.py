@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR | --all-cards]
+    python3 chip_smoke.py [--parent DIR | --all-cards | --wgs]
 
 ``--all-cards`` runs only the build and phase ``cards`` (below) on every
-visible card (2 or more).
+visible card (2 or more). ``--wgs`` runs only the build and phase ``wgs``
+(below): the whole genome on one card.
 
 ``--parent DIR`` names a checkout of an earlier commit of this repository,
 unpacked into a directory inside this one (``git archive <commit> | tar -x
@@ -118,19 +119,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    launches, seconds) and the phase's seconds.
 12. genome -- genome scale: a 300 Mb genome, 3,000,000 SNPs, 262,144 reads
    of 101 bp at batch_reads=32768 (the JAX package's mid-scale point).
-   (a) synthesis and the index build (tools/rehearse_wgs.py, host-only)
-   and (e) the kill / resume endurance over 2,097,152 more reads
-   (tools/endurance_wgs.py: three fresh interpreters on the sharded
-   dictionary at D = 1, leg B SIGKILLed at a checkpoint past half the
-   stream, leg C's VCF byte-identical to leg A's) run in a session of their
-   own beside phases 5, 6 and 11, (e) only once phases 3 and 4 are over;
-   then (b) the hash-table runner (host derivation of its 34 GB table,
-   upload, reads/s, peak device memory, index bytes, the bare vote launch
-   on a 300 Mb step's records), (c) the sharded dictionary at D = 1, its
+   (a) synthesis and the index build (tools/rehearse_wgs.py, host-only;
+   the bucketed ref-dictionary build) and (e) the kill / resume endurance
+   over 2,097,152 more reads (tools/endurance_wgs.py: three fresh
+   interpreters on the sharded dictionary at D = 1, leg B SIGKILLed at a
+   checkpoint past half the stream, leg C's VCF byte-identical to leg A's)
+   run in a session of their own beside phases 5, 6 and 11, (e) only once
+   phases 3 and 4 are over; then (b) the hash-table runner (host
+   derivation of its 34 GB table, upload, reads/s, peak device memory,
+   index bytes, the bare vote launch on a 300 Mb step's records), (c) the
+   sharded dictionary at D = 1, placed streamed (chunks of the
+   memory-mapped rows carried straight into the shard's tensors), its
    counts equal to (b)'s at every site, and (d) the oracle spot check
    (2,048 sampled reads through the D = 1 runner and the sequential
    oracle, every site equal). No overflow may be left and the vote kernel
-   must launch in every run.
+   must launch in every run. Each stage's peak host RSS is logged: the
+   tools' stages (synthesis, build; each leg's load, placement, stream,
+   VCF) from their JSON lines, and here the derivation and upload of (b)
+   and the placement of (c) (``rehearse_wgs.stage_rss``: the largest RSS
+   sampled every 10 ms through the stage).
 
 Phase order: 1, 2, then 3-6 and 11 beside genome (a) and (e) and beside
 the making of phase 7's dataset and index (a process of its own, host
@@ -139,6 +146,27 @@ processes, so their reads/s stays comparable with earlier runs. The log
 gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries phase
 9's and phase 10's numbers, ``{"geno_bench": ...}`` phase 8's, ``{"fuzz":
 ...}`` phase 11's, ``{"genome": ...}`` phase 12's.
+
+wgs (``--wgs`` only) -- the JAX package's headline scale
+   (docs/WORKFLOWS.md:62-110; hg19 + dbSNP-common): a 3,000 Mb genome,
+   5,000,000 SNPs, 262,144 reads of 101 bp at batch_reads=32768, the
+   rehearsal tool's generator draws (seed 20260819). (a) Synthesis and the
+   bucketed index build (tools/rehearse_wgs.py ``--phase index``, its own
+   process); (b) the index loaded through mmap and the sharded dictionary
+   placed, streamed, at D = 2 on one card (cuda:0 twice: a shard holds at
+   most 2^31 rows), the reads streamed: no overflow left, the vote kernel
+   launched, the bare vote launch on the first batch's own records equal
+   to the plain version and timed; (c) oracle spot parity, 2,048 sampled
+   reads, every one of the 5,000,000 sites equal; (d) the kill / resume
+   endurance over 2,097,152 more reads at D = 2 (tools/endurance_wgs.py,
+   three fresh interpreters), the resumed VCF byte-identical. Each stage's
+   peak host RSS (``rehearse_wgs.stage_rss``), the index's bytes on the
+   card and the peak device memory are printed,
+   with the host's free disk, processor count and MemTotal; a stage whose
+   peak RSS reaches MemTotal fails the phase. Prints a ``{"wgs": ...}``
+   line. Needs ~47 GB of free disk for the index and ~6 GB for the inputs
+   and outputs (checked first; ``<cache>/wgs.vgt`` may link the index to
+   another file system) and about 25-30 minutes.
 
 cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    runner (the second warm), every VCF equal to the one-card hash-table
@@ -200,6 +228,12 @@ FUZZ_BIG_SEED = 0        # also at VGT_FUZZ_BIG scale
 WGS_MB, WGS_SNPS, WGS_READS = 300, 3_000_000, 262_144
 WGS_EXTRA_READS, WGS_SPOT = 2_097_152, 2048   # endurance stream, spot check
 WGS_CHECKPOINT_EVERY = 8   # endurance checkpoints: every 262,144 reads
+# --wgs: the JAX package's headline scale (docs/WORKFLOWS.md:62-110), D = 2
+# shards on one card (SHARD_ROWS_MAX: at most 2^31 rows a shard)
+WGS3_MB, WGS3_SNPS, WGS3_DEVICES = 3000, 5_000_000, "cuda:0,cuda:0"
+# free bytes the index, and the inputs and outputs, need (the index may
+# lie on another file system: <cache>/wgs.vgt may link to a directory)
+WGS3_INDEX_DISK, WGS3_IO_DISK = 47e9, 6e9
 
 
 def log(phase: str, msg: str) -> None:
@@ -1931,43 +1965,64 @@ def start_genome_background(go: str):
 
 
 def finish_tool(proc, timeout: float, tag: str, keys) -> dict:
-    """Wait for a tool run started in a session of its own (the whole
-    session killed once ``timeout`` has passed), print its output under
-    ``tag`` and return its JSON lines ``{key: ...}`` for ``keys`` (a key
-    it printed no line for is missing). A non-zero exit fails the phase."""
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        raise RuntimeError(f"{tag}: the tool did not finish within "
-                           f"{timeout} s") from None
-    finally:
+    """Wait for a tool run started in a session of its own
+    (``start_session``), print each line of its output under ``tag`` as it
+    comes, and return its JSON lines ``{key: ...}`` for ``keys`` (a key it
+    printed no line for is missing). The whole session is killed once
+    ``timeout`` seconds have passed, and when the tool ends; a timeout or a
+    non-zero exit fails the phase."""
+    import threading
+
+    expired = threading.Event()
+
+    def stop():
         try:   # the tool and whatever of its session still runs
             os.killpg(proc.pid, signal.SIGKILL)
         except ProcessLookupError:
             pass
-        proc.wait()
+
+    def expire():
+        expired.set()
+        stop()
+
+    timer = threading.Timer(timeout, expire)
+    timer.start()
     got = {}
-    for line in out.splitlines():
-        log(tag, line)
-        for key in keys:
-            if line.startswith("{\"%s\"" % key):
-                got[key] = json.loads(line)[key]
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            log(tag, line)
+            for key in keys:
+                if line.startswith("{\"%s\"" % key):
+                    got[key] = json.loads(line)[key]
+        proc.wait()
+    finally:
+        timer.cancel()
+        stop()
+        proc.wait()
+    if expired.is_set():
+        raise RuntimeError(f"{tag}: the tool did not finish within "
+                           f"{timeout} s")
     if proc.returncode:
         raise RuntimeError(f"{tag}: the tool exited {proc.returncode}")
     return got
 
 
-def endurance_summary(card: str, end: dict) -> dict:
-    """Phase genome (e)'s result: leg B killed at a checkpoint past half
-    the stream and before its end, leg C's VCF byte-identical to leg A's
-    (the tool checks both and says ``ok``), and the vote kernel launched
-    in legs A and C (counted in each leg's process)."""
+def endurance_summary(card: str, end: dict, tag: str = "genome") -> dict:
+    """Phase genome (e)'s result (and phase wgs's): leg B killed at a
+    checkpoint past half the stream and before its end, leg C's VCF
+    byte-identical to leg A's (the tool checks both and says ``ok``), and
+    the vote kernel launched in legs A and C (counted in each leg's
+    process)."""
     legs = end.get("legs", {})
     geno = {k: legs.get(k, {}).get("geno") or {} for k in "ABC"}
     if not end.get("ok") or not legs["B"]["killed"] or not all(
             geno[k].get("vote_launches", 0) > 0 for k in "AC"):
-        raise AssertionError(f"genome: endurance failed: {end}")
-    log("genome", f"[{card}] endurance: {end['reads']} reads; leg B "
+        raise AssertionError(f"{tag}: endurance failed: {end}")
+    for k in "AC":
+        log(tag, f"[{card}] endurance leg {k}: peak RSS by stage "
+                 f"{geno[k].get('stage_peak_rss')}")
+    log(tag, f"[{card}] endurance: {end['reads']} reads; leg B "
                   f"killed at checkpoint offset {end['killed_at_offset']} "
                   f"(kill point {end['kill_at']}); leg C resumed in "
                   f"{legs['C']['seconds']:.1f} s (streamed "
@@ -1985,20 +2040,101 @@ def endurance_summary(card: str, end: dict) -> dict:
         legs={k: dict(wall_s=legs[k]["seconds"], killed=legs[k]["killed"],
                       **{f: geno[k].get(f) for f in (
                           "reads", "seconds", "reads_s", "resumed_from",
-                          "vote_launches", "setup_s", "load_s",
+                          "vote_launches", "setup_s", "load_s", "vcf_s",
                           "peak_device_bytes", "index_device_bytes",
-                          "peak_rss_bytes")})
+                          "peak_rss_bytes", "stage_peak_rss")})
               for k in "ABC"})
 
 
-def host_memory() -> dict:
-    """The host's MemTotal and the free bytes of the cache's file system."""
-    import shutil
+def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
+                          stages: dict, want=None):
+    """Phase genome (c)-(d) and phase wgs (b)-(c): the sharded dictionary
+    of ``index`` placed, streamed, on ``mesh`` (its peak RSS as
+    ``stages["placement"]``), ``fq`` streamed with no overflow left and the
+    vote kernel launched (count set to 0 just before the stream, read just
+    after), counts at every site (equal to ``want``, the hash table's
+    (ref, alt) counts, where given), then oracle spot parity through the
+    same runner: WGS_SPOT sampled reads, 0 mismatches over every site.
+    Returns (its numbers, the first vote launch's records and C)."""
+    import numpy as np
+    import torch
 
-    with open("/proc/meminfo") as f:
-        total = next(int(line.split()[1]) * 1024 for line in f
-                     if line.startswith("MemTotal:"))
-    return dict(mem_total=total, disk_free=shutil.disk_usage(CACHE).free)
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records
+    from vargeno_tpu_torch.tools import rehearse_wgs
+
+    n_sites = int(index.sites.pos.shape[0])
+    kept = []
+
+    def keeping_vote(ev_idx, ev_meta, ev_total, C):
+        if not kept:
+            kept.append(((ev_idx, ev_meta, ev_total), C))
+        return vote_scan_records(ev_idx, ev_meta, ev_total, C)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with rehearse_wgs.stage_rss(stages, "placement"):
+        runner = ShardedDictGenoRunner(index, mesh, cfg, vote=keeping_vote)
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    vote_scan_records.launches = 0
+    with rehearse_wgs.stage_rss(stages, "geno"):
+        got = rehearse_wgs.stream(runner, fq, progress_every=0)
+    launches = vote_scan_records.launches
+    check_no_overflow(runner, tag)
+    if launches <= 0:
+        raise AssertionError(f"{tag}: the vote kernel was never launched")
+    rc, ac = runner.host_counts()
+    if rc.shape != (n_sites + 1,) or int(rc.sum() + ac.sum()) <= 0:
+        raise AssertionError(f"{tag}: empty or misshapen counts")
+    if want is not None and not (np.array_equal(rc, want[0])
+                                 and np.array_equal(ac, want[1])):
+        bad = int(((rc != want[0]) | (ac != want[1])).sum())
+        raise AssertionError(f"{tag}: the sharded dictionary's counts "
+                             f"differ from the hash table's at {bad} sites")
+    out = dict(
+        shards=len(mesh.devices), setup_s=setup_s,
+        placement_peak_rss=stages["placement"], reads=got["reads"],
+        geno_s=got["seconds"], reads_s=got["reads_s"],
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        index_bytes=runner.device_bytes(),
+        shard_ref_rows=runner.shards[0].dix.n_ref_rows,
+        vote_launches=launches, escalations=runner.n_escalations,
+        route_overflow=runner.stats_totals["route_overflow"],
+        final_route_factor=runner._cfg_run.route_factor,
+        retry_reads=runner.n_retry_reads, stats=got["stats"])
+    log(tag, f"[{card}] sharded dictionary, D = {out['shards']}: streamed "
+             f"placement {setup_s:.2f} s at a peak RSS of "
+             f"{stages['placement']} B, {out['index_bytes']} B of index on "
+             f"the card ({out['shard_ref_rows']} ref rows a shard); "
+             f"{got['reads']} reads in {got['seconds']:.3f} s = "
+             f"{got['reads_s']:.1f} reads/s"
+             + (f"; counts equal to the hash table's at all {n_sites} "
+                f"sites" if want is not None else "")
+             + f"; peak device memory {out['peak_bytes']} B; escalations "
+             f"{runner.n_escalations} (route_factor {cfg.route_factor} -> "
+             f"{runner._cfg_run.route_factor}), vote launches {launches}")
+
+    vote_scan_records.launches = 0
+    with rehearse_wgs.stage_rss(stages, "spot"):
+        spot = rehearse_wgs.spot_parity(index, runner, fq, WGS_SPOT)
+    spot["vote_launches"] = vote_scan_records.launches
+    out["spot"] = spot
+    if spot["mismatches"] or spot["overflow"] or spot["increments"] <= 0 \
+            or spot["vote_launches"] <= 0 or spot["reads"] != WGS_SPOT \
+            or spot["sites"] != n_sites:
+        raise AssertionError(f"{tag}: oracle spot parity failed: {spot}")
+    log(tag, f"oracle spot parity: {spot['reads']} reads, 0 mismatches "
+             f"over {spot['sites']} sites ({spot['increments']} site-count "
+             f"increments; engine {spot['engine_s']:.2f} s, oracle "
+             f"{spot['oracle_s']:.2f} s), vote launches "
+             f"{spot['vote_launches']}")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, kept[0]
 
 
 def phase_genome(card: str, bg: dict) -> dict:
@@ -2016,11 +2152,9 @@ def phase_genome(card: str, bg: dict) -> dict:
     at every site. (d) Oracle spot parity: 2,048 sampled reads through the
     D = 1 runner and the port's sequential oracle, 0 mismatches over every
     site. (e) is checked here (``endurance_summary``)."""
-    import numpy as np
     import torch
 
     from vargeno_tpu_torch.config import GenoConfig
-    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
     from vargeno_tpu_torch.dist.sharding import make_mesh
     from vargeno_tpu_torch.engine.device_index import from_numpy, host_fields
     from vargeno_tpu_torch.engine.geno import GenoRunner, _encoder
@@ -2037,7 +2171,7 @@ def phase_genome(card: str, bg: dict) -> dict:
     L, K = autosize_shapes(fq)
     cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
                      ht_target_load=HT_LOAD)
-    host = host_memory()
+    host = rehearse_wgs.host_info(d)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2050,7 +2184,8 @@ def phase_genome(card: str, bg: dict) -> dict:
                   f"reads {prep.get('extra_reads_s')} s, index build "
                   f"{prep.get('build_s')} s, {prep.get('disk_bytes')} B on "
                   f"disk, the builder's peak RSS {prep.get('peak_rss_bytes')} "
-                  f"B; index load (mmap) {load_s:.2f} s; host MemTotal "
+                  f"B (by stage {prep.get('stage_peak_rss')}); index load "
+                  f"(mmap) {load_s:.2f} s; host MemTotal "
                   f"{host['mem_total']} B, free disk {host['disk_free']} B")
     if n_sites != WGS_SNPS:
         raise AssertionError(f"genome: {n_sites} sites, not {WGS_SNPS}")
@@ -2064,14 +2199,17 @@ def phase_genome(card: str, bg: dict) -> dict:
     # H100 host this phase was sized on had free
     torch.cuda.reset_peak_memory_stats()
     rss0 = rehearse_wgs.peak_rss()
+    stages = {}
     t0 = time.perf_counter()
-    fields, statics = host_fields(dataclasses.replace(index, prefix=None),
-                                  HT_LOAD)
+    with rehearse_wgs.stage_rss(stages, "derive"):
+        fields, statics = host_fields(
+            dataclasses.replace(index, prefix=None), HT_LOAD)
     derive_s = time.perf_counter() - t0
     table_b = int(fields["both_ht"].nbytes)
     t0 = time.perf_counter()
-    dix = from_numpy(fields, statics, DEVICE)
-    torch.cuda.synchronize()
+    with rehearse_wgs.stage_rss(stages, "upload"):
+        dix = from_numpy(fields, statics, DEVICE)
+        torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     del fields
     derive_rss = rehearse_wgs.peak_rss()
@@ -2094,6 +2232,7 @@ def phase_genome(card: str, bg: dict) -> dict:
         chain=dix.both_ht_chain, buckets=dix.both_ht_nb,
         derived_cache_bytes=0,
         host_peak_rss_before=rss0, host_peak_rss=derive_rss,
+        stage_peak_rss=stages,
         reads_s=runner.n_reads / geno_s, geno_s=geno_s,
         peak_bytes=torch.cuda.max_memory_allocated(),
         index_bytes=dix.nbytes(), vote_launches=launches,
@@ -2103,7 +2242,9 @@ def phase_genome(card: str, bg: dict) -> dict:
                   f"(table {table_b} B, {dix.both_ht_nb} buckets, chain "
                   f"{dix.both_ht_chain}; cold: 0 B written to the derived "
                   f"cache, so no warm derivation), upload {upload_s:.2f} s, "
-                  f"host peak RSS {derive_rss} B; {runner.n_reads} reads in "
+                  f"host peak RSS {derive_rss} B (derivation "
+                  f"{stages['derive']} B, upload {stages['upload']} B); "
+                  f"{runner.n_reads} reads in "
                   f"{geno_s:.3f} s = {runner.n_reads / geno_s:.1f} reads/s "
                   f"(index load and derivation excluded); peak device "
                   f"memory {out['hash_table']['peak_bytes']} B, index "
@@ -2129,65 +2270,116 @@ def phase_genome(card: str, bg: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the sharded dictionary at D = 1
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    runner = ShardedDictGenoRunner(index, make_mesh(1), cfg)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    vote_scan_records.launches = 0
-    t0 = time.perf_counter()
-    runner.consume_fastq(fq)
-    torch.cuda.synchronize()
-    geno_s = time.perf_counter() - t0
-    launches = vote_scan_records.launches
-    check_no_overflow(runner, "genome/sharded dictionary")
-    rc, ac = runner.host_counts()
-    if not (np.array_equal(rc, ht_rc) and np.array_equal(ac, ht_ac)):
-        bad = int(((rc != ht_rc) | (ac != ht_ac)).sum())
-        raise AssertionError(f"genome: the D = 1 sharded dictionary's counts "
-                             f"differ from the hash table's at {bad} sites")
-    if launches <= 0:
-        raise AssertionError("genome/sharded dictionary: the vote kernel was "
-                             "never launched")
-    out["sharded_d1"] = dict(
-        setup_s=setup_s, reads_s=runner.n_reads / geno_s, geno_s=geno_s,
-        peak_bytes=torch.cuda.max_memory_allocated(),
-        index_bytes=runner.device_bytes(), vote_launches=launches,
-        escalations=runner.n_escalations,
-        route_overflow=runner.stats_totals["route_overflow"],
-        final_route_factor=runner._cfg_run.route_factor,
-        retry_reads=runner.n_retry_reads)
-    log("genome", f"[{card}] sharded dictionary, D = 1: partition + upload "
-                  f"{setup_s:.2f} s; {runner.n_reads} reads in {geno_s:.3f} "
-                  f"s = {runner.n_reads / geno_s:.1f} reads/s; counts equal "
-                  f"to the hash table's at all {n_sites} sites; peak device "
-                  f"memory {out['sharded_d1']['peak_bytes']} B, index "
-                  f"{runner.device_bytes()} B on the card; escalations "
-                  f"{runner.n_escalations} (route_factor {cfg.route_factor} "
-                  f"-> {runner._cfg_run.route_factor}), vote launches "
-                  f"{launches}")
-
-    # (d) oracle spot parity through the same runner
-    vote_scan_records.launches = 0
-    spot = rehearse_wgs.spot_parity(index, runner, fq, WGS_SPOT)
-    spot["vote_launches"] = vote_scan_records.launches
-    out["spot"] = spot
-    if spot["mismatches"] or spot["overflow"] or spot["increments"] <= 0 \
-            or spot["vote_launches"] <= 0 or spot["reads"] != WGS_SPOT:
-        raise AssertionError(f"genome: oracle spot parity failed: {spot}")
-    log("genome", f"oracle spot parity: {spot['reads']} reads, 0 mismatches "
-                  f"over {spot['sites']} sites ({spot['increments']} "
-                  f"site-count increments; engine {spot['engine_s']:.2f} s, "
-                  f"oracle {spot['oracle_s']:.2f} s), vote launches "
-                  f"{spot['vote_launches']}")
-    del runner, index
+    # (c) the sharded dictionary at D = 1, (d) oracle spot parity
+    stages = {}
+    out["sharded_d1"], _ = sharded_genome_checks(
+        "genome", card, index, fq, make_mesh(1), cfg, stages,
+        want=(ht_rc, ht_ac))
+    out["sharded_d1"]["stage_peak_rss"] = stages
+    del index
     gc.collect()
-    torch.cuda.empty_cache()
 
     out["endurance"] = endurance_summary(card, bg["endurance"])
     out["seconds"] = time.perf_counter() - t_phase
     log("genome", f"phase genome {out['seconds']:.1f} s")
+    return out
+
+
+def wgs_dir() -> str:
+    return os.path.join(CACHE, f"wgs{WGS3_MB}mb_{WGS3_SNPS}snp_{WGS_READS}r")
+
+
+def phase_wgs(card: str) -> dict:
+    """``--wgs``: the whole genome on one card (see the module's
+    docstring): synthesis and the bucketed build in the rehearsal tool's
+    own process; here the mmap'd index, the streamed D = 2 placement, the
+    stream with no overflow left and the vote kernel launched, the bare
+    vote launch on the first batch's records, oracle spot parity over
+    every site; then the endurance tool's legs at D = 2. Each stage's
+    peak RSS must stay under the host's MemTotal."""
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.tools import rehearse_wgs
+
+    t_phase = time.perf_counter()
+    d = wgs_dir()
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "wgs")
+    fq = os.path.join(d, "reads.fq")
+    host = rehearse_wgs.host_info(d)
+    log("wgs", f"[{card}] {WGS3_MB} Mb, {WGS3_SNPS} SNPs, {WGS_READS} reads, "
+               f"batch_reads {BATCH}, devices {WGS3_DEVICES}; host: "
+               f"{host['nproc']} processors, MemTotal {host['mem_total']} "
+               f"B, free disk {host['disk_free']} B")
+    vgt = os.path.realpath(prefix + ".vgt")
+    if not store.exists(prefix):
+        import shutil
+
+        need = {}   # file system -> (a path on it, bytes needed)
+        for path, n in ((d, WGS3_IO_DISK),
+                        (vgt if os.path.isdir(vgt) else d, WGS3_INDEX_DISK)):
+            p0, n0 = need.get(os.stat(path).st_dev, (path, 0))
+            need[os.stat(path).st_dev] = (p0, n0 + n)
+        for path, n in need.values():
+            free = shutil.disk_usage(path).free
+            if free < n:
+                raise RuntimeError(f"wgs: {free} B free under {path}, the "
+                                   f"run needs {n:.0f}")
+    log("wgs", f"inputs and outputs in {d}, the index in {vgt}")
+
+    # (a) synthesis and the index build
+    t0 = time.perf_counter()
+    prep = finish_tool(start_session(tool_command(
+        "rehearse_wgs", "--phase", "index", "--mb", WGS3_MB, "--snps",
+        WGS3_SNPS, "--reads", WGS_READS, "--extra-reads", WGS_EXTRA_READS,
+        "--cache", d, "--progress-every", 0)), 3000, "wgs",
+        ("index",)).get("index", {})
+    prep_s = time.perf_counter() - t0
+    stages = dict(prep.get("stage_peak_rss", {}))
+
+    # (b) the index through mmap, the streamed D = 2 placement, the
+    # stream, (c) oracle spot parity
+    t0 = time.perf_counter()
+    with rehearse_wgs.stage_rss(stages, "load"):
+        index = store.load(prefix)
+    load_s = time.perf_counter() - t0
+    n_sites = int(index.sites.pos.shape[0])
+    n_ref, n_snp = int(index.ref.kmers.shape[0]), int(index.snp.kmers.shape[0])
+    log("wgs", f"[{card}] index loaded (mmap) in {load_s:.2f} s: {n_ref} ref "
+               f"rows, {n_snp} snp rows, {n_sites} sites")
+    if n_sites != WGS3_SNPS:
+        raise AssertionError(f"wgs: {n_sites} sites, not {WGS3_SNPS}")
+    sharded, first = sharded_genome_checks(
+        "wgs", card, index, fq, make_mesh(devices=WGS3_DEVICES.split(",")),
+        rehearse_wgs.geno_config(BATCH), stages)
+    del index
+    gc.collect()
+    vote_on_step = time_vote_on_step("wgs", card, *first)
+    del first
+
+    # (d) kill / resume at D = 2
+    end = finish_tool(start_session(tool_command(
+        "endurance_wgs", "--cache", d, "--mb", WGS3_MB, "--snps", WGS3_SNPS,
+        "--base-reads", WGS_READS, "--reads", WGS_EXTRA_READS, "--device",
+        DEVICE, "--devices", WGS3_DEVICES, "--batch", BATCH,
+        "--checkpoint-every", WGS_CHECKPOINT_EVERY, "--kill-after-frac",
+        0.5)), 2400, "wgs", ("endurance",)).get("endurance", {})
+    endurance = endurance_summary(card, end, "wgs")
+    for k in "AC":
+        for name, v in (endurance["legs"][k]["stage_peak_rss"] or {}).items():
+            stages[f"leg {k} {name}"] = v
+    over = {k: v for k, v in stages.items() if v >= host["mem_total"]}
+    if over:
+        raise AssertionError(f"wgs: stages at the host's MemTotal "
+                             f"({host['mem_total']} B): {over}")
+    out = dict(
+        card=card, mb=WGS3_MB, snps=WGS3_SNPS, reads=WGS_READS,
+        batch_reads=BATCH, devices=WGS3_DEVICES, ref_rows=n_ref,
+        snp_rows=n_snp, host=host, prep=prep, prep_s=prep_s, load_s=load_s,
+        sharded=sharded, vote_on_step=vote_on_step, endurance=endurance,
+        stage_peak_rss=stages, seconds=time.perf_counter() - t_phase)
+    log("wgs", f"[{card}] peak RSS by stage (B): {json.dumps(stages)}; "
+               f"phase wgs {out['seconds']:.1f} s")
     return out
 
 
@@ -2351,8 +2543,8 @@ def main() -> int:
     if len(argv) == 2 and argv[0] in ("--parent", "--step-ops-of",
                                       "--routed-step-ops-of", "--mh-worker"):
         parent = argv[1]
-    elif argv and argv != ["--all-cards"]:
-        print("usage: chip_smoke.py [--parent DIR | --all-cards]",
+    elif argv and argv not in (["--all-cards"], ["--wgs"]):
+        print("usage: chip_smoke.py [--parent DIR | --all-cards | --wgs]",
               file=sys.stderr)
         return 2
     try:
@@ -2404,6 +2596,15 @@ def main() -> int:
         cards = phase_cards(card)
         log("done", f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"cards": {"card": card, **cards}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if argv == ["--wgs"]:
+        wgs = phase_wgs(card)
+        log("done", f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"wgs": wgs}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2480,7 +2681,7 @@ def main() -> int:
              "hash table": genome["hash_table"]["vote_launches"],
              "sharded dictionary, D = 1":
                  genome["sharded_d1"]["vote_launches"],
-             "spot parity": genome["spot"]["vote_launches"],
+             "spot parity": genome["sharded_d1"]["spot"]["vote_launches"],
              **{f"endurance leg {k}": v["vote_launches"]
                 for k, v in genome["endurance"]["legs"].items()
                 if v["vote_launches"] is not None}},

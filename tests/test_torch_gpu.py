@@ -13,7 +13,8 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch_index_share import FIX, bench_cache
+from torch_index_share import (FIX, STRADDLE_2_31, bench_cache,
+                              shift_positions)
 from torch_index_share import small_index as build_small_index
 
 from vargeno_tpu_torch.config import GenoConfig
@@ -478,6 +479,54 @@ def test_mesh_runners_on_cuda_match_cpu(cuda, small_index):
                     if "overflow" in k and v}
         if kw:
             assert run._cfg_run.route_factor > kw["route_factor"]
+
+
+def test_streamed_placement_on_cuda_matches_host(cuda, small_index,
+                                               monkeypatch, tmp_path):
+    """The sharded dictionary placed on the card a few rows at a time
+    (many pinned stages) from an index loaded through mmap, at D = 2 on
+    one card and D = 3: every shard's key and meta tensors equal the host
+    shards', pad rows included."""
+    from vargeno_tpu_torch.dist import sharded_dict as sd
+
+    monkeypatch.setattr(sd, "PLACE_ROWS", 1000)
+    monkeypatch.setattr(tdi, "STAGE_BYTES", 4096)
+    store.save(str(tmp_path / "mini"), small_index)
+    index = store.load(str(tmp_path / "mini"))
+    for D in (2, 3):
+        part = sd.partition_index(index, D)
+        host = sd.place_shards(part, make_mesh(devices=["cpu"] * D))
+        card = sd.place_shards(part, make_mesh(devices=["cuda:0"] * D))
+        for h, c in zip(host, card):
+            for t in ("ref_key", "snp_key"):
+                assert torch.equal(getattr(c, t).cpu(), getattr(h, t))
+            for t in ("ref_meta", "snp_meta"):
+                assert torch.equal(getattr(c.dix, t).cpu(),
+                                   getattr(h.dix, t))
+
+
+def test_positions_past_2_31_on_cuda(cuda, small_index):
+    """Every position of the index moved to both sides of 2**31: the
+    runner on the card (the vote kernel launched) and the routed D = 2
+    runner count exactly as the CPU runner on the unmoved index."""
+    base = GenoConfig(batch_reads=512, max_read_len=128,
+                      max_kmers_per_read=4)
+    fq = os.path.join(FIX, "reads.fq")
+    ref = GenoRunner(small_index, base, device="cpu")
+    ref.consume_fastq(fq)
+    want = ref.host_counts()
+    moved = shift_positions(small_index, STRADDLE_2_31)
+    for make in (lambda: GenoRunner(moved, base, device="cuda"),
+                 lambda: ShardedDictGenoRunner(
+                     moved, make_mesh(devices=["cuda:0", "cuda:0"]), base)):
+        before = vote_scan_records.launches
+        run = make()
+        run.consume_fastq(fq)
+        assert vote_scan_records.launches > before
+        got = run.host_counts()
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        del run
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -1,9 +1,9 @@
 """The port's sharded dictionary (``dist/sharded_dict.py``) on the CPU,
 against the JAX package on the same numpy-built small index, exactly:
 
-- ``partition_index`` at D = 1, 2, 3 and 8: the stacked shard arrays (the
-  port's int64 search keys against the JAX hi / lo columns), owned and
-  total rows, the plan;
+- ``partition_index`` + ``place_shards`` at D = 1, 2, 3 and 8: the shard
+  tensors (the port's int64 search keys against the JAX hi / lo columns,
+  the meta words), owned and total rows, the plan;
 - one shard's block bounds and block scans against the JAX ``_ShardLocal``
   called outside ``shard_map``;
 - the D = 2 runner against the JAX D = 2 runner (counts, stat keys);
@@ -65,27 +65,32 @@ def _golden_run(runner, tmp_path, fq=FQ):
 
 @pytest.mark.parametrize("D", [1, 2, 3, 8])
 def test_partition_matches_jax(index, j_index, D):
-    (fields, statics), st, plan, owned, totals = sd.partition_index(index, D)
+    part = sd.partition_index(index, D)
+    shards = sd.place_shards(part, _mesh(D))
     _, jst, jplan, jowned, jtotals = j_sd.partition_index(j_index, D)
-    np.testing.assert_array_equal(plan.ref_bounds_hi,
+    np.testing.assert_array_equal(part.plan.ref_bounds_hi,
                                   np.asarray(jplan.ref_bounds_hi))
-    np.testing.assert_array_equal(plan.snp_bounds_hi24,
+    np.testing.assert_array_equal(part.plan.snp_bounds_hi24,
                                   np.asarray(jplan.snp_bounds_hi24))
     for k in ("ref", "snp"):
-        np.testing.assert_array_equal(owned[k], jowned[k])
-        np.testing.assert_array_equal(totals[k], jtotals[k])
-        np.testing.assert_array_equal(
-            st[k + "_key"], search.np_okey(jst[k + "_hi"], jst[k + "_lo"]))
-        np.testing.assert_array_equal(st[k + "_meta"], jst[k + "_meta"])
-    # the scans' test words come out of the key: equal on every real row
-    # (the JAX pad rows of snp_test hold 0xFFFFFFFF where hi & 0xFF is 0xFF)
-    keys = torch.from_numpy(st["snp_key"])
-    hi, lo = search.key_hi(keys), search.key_lo(keys)
-    for d in range(D):
-        n = totals["snp"][d]
-        np.testing.assert_array_equal(lo[d, :n].numpy(),
+        np.testing.assert_array_equal(part.owned[k], jowned[k])
+        np.testing.assert_array_equal(part.totals[k], jtotals[k])
+    for d, sh in enumerate(shards):
+        for k in ("ref", "snp"):
+            np.testing.assert_array_equal(
+                getattr(sh, k + "_key").numpy(),
+                search.np_okey(jst[k + "_hi"][d], jst[k + "_lo"][d]))
+            np.testing.assert_array_equal(
+                getattr(sh.dix, k + "_meta").numpy().view(np.uint32),
+                jst[k + "_meta"][d])
+        # the scans' test words come out of the key: equal on every real
+        # row (the JAX pad rows of snp_test hold 0xFFFFFFFF where hi & 0xFF
+        # is 0xFF)
+        n = part.totals["snp"][d]
+        hi, lo = search.key_hi(sh.snp_key), search.key_lo(sh.snp_key)
+        np.testing.assert_array_equal(lo[:n].numpy(),
                                       jst["snp_test"][d, :n, 0])
-        np.testing.assert_array_equal((hi[d, :n] & 0xFF).numpy(),
+        np.testing.assert_array_equal((hi[:n] & 0xFF).numpy(),
                                       jst["snp_test"][d, :n, 1])
 
 

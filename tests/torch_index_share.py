@@ -54,6 +54,40 @@ def small_index() -> store.VarGenoIndex:
         sites=store.derive_sites(snp_dict), snp_locations=locs)
 
 
+def shift_positions(index: store.VarGenoIndex, c: int):
+    """``index`` with ``c`` added to every genome position it holds: the
+    unambiguous ref and SNP rows' positions, the aux rows' (their zero
+    padding stays zero) and the sites'. Aux row numbers and POS_AMBIGUOUS
+    stay. Reads count the same sites in it."""
+    import numpy as np
+
+    from vargeno_tpu_torch.config import FLAG_UNAMBIGUOUS
+
+    c = np.uint32(c)
+
+    def at(pos, flag):
+        return np.where(flag == FLAG_UNAMBIGUOUS, pos + c, pos).astype(
+            np.uint32)
+
+    def aux(a):
+        return np.where(a != 0, a + c, 0).astype(np.uint32)
+
+    r, s = index.ref, index.snp
+    return dataclasses.replace(
+        index, prefix=None,
+        ref=dataclasses.replace(r, pos=at(r.pos, r.flag), aux=aux(r.aux)),
+        snp=dataclasses.replace(s, pos=at(s.pos, s.flag),
+                                aux_pos=aux(s.aux_pos)),
+        sites=dataclasses.replace(index.sites,
+                                  pos=(index.sites.pos + c).astype(
+                                      np.uint32)))
+
+
+# a shift that puts the mini index's positions (1 .. ~140,000) on both
+# sides of 2**31
+STRADDLE_2_31 = (1 << 31) - 70_000
+
+
 def head_fastq(src: str, dst: str, n: int) -> str:
     """The first ``n`` records of the FASTQ ``src``, written to ``dst``."""
     with open(src) as f:

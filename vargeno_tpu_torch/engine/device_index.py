@@ -1,8 +1,15 @@
-"""Device-resident index (port of ``vargeno_tpu/engine/device_index.py``).
+"""Device-resident index (port of ``vargeno_tpu/engine/device_index.py``,
+no longer a pure copy: its tables must equal the JAX
+``build_device_index(host_only=True)``'s, which tests/test_torch_index.py
+and, through the sharded dictionary, tests/test_torch_sharded_dict.py and
+tests/test_torch_wgs_stream.py hold).
 
 The host derivation (``host_fields``) turns a VarGenoIndex into the engine's
 tables exactly as the JAX package's ``build_device_index(host_only=True)``
-does, minus the retired one-bit prefilter (``both_pf``). ``from_numpy``
+does, minus the retired one-bit prefilter (``both_pf``). Unlike the JAX
+derivation it reads the dictionary columns in chunks where it only needs a
+maximum, and the sharded dictionary takes only its ``replicated_tables``
+and ``scan_maxima``: none of the full-width dictionary tables. ``from_numpy``
 carries such a table dict -- the port's or the JAX package's -- onto a torch
 device as a ``TorchDeviceIndex``. Every uint32 table is stored as its int32
 bit pattern (a zero-copy view on the host); gathered words are widened to
@@ -25,7 +32,7 @@ import os
 import numpy as np
 import torch
 
-from ..index.store import VarGenoIndex
+from ..index.store import VarGenoIndex, read_rows
 
 # tables the step gathers from (all uint32 on the host)
 DEVICE_FIELDS = ("both_ht", "ref_jg", "snp_jg", "ref_hi", "ref_lo",
@@ -69,43 +76,72 @@ class TorchDeviceIndex:
                    for f in DEVICE_FIELDS)
 
 
-STAGE_BYTES = 1 << 28   # one pinned staging buffer of upload_array
+STAGE_BYTES = 1 << 28   # one pinned staging buffer of a Stager
+
+
+class Stager:
+    """Copies host arrays into slices of tensors on ``device``. On the CPU
+    directly; to a CUDA device in STAGE_BYTES pieces through two pinned
+    buffers in turn, each refilled once its copy to the card is done: the
+    host never holds a whole copy of what it sends (a 34 GB hash table, a
+    memory-mapped index), and the card's copies run at the pinned rate
+    while the host fills the other buffer. ``finish`` waits for the last
+    copies; a Stager is used once."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.bufs = [None, None]
+        self.done = [None, None]
+        self.turn = 0
+
+    def copy(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        """``dst`` (a contiguous tensor on the device) takes the bytes of
+        ``src`` (as many)."""
+        src = np.ascontiguousarray(src).reshape(-1).view(np.uint8)
+        out = dst.view(-1).view(torch.uint8)
+        if out.numel() != src.shape[0]:
+            raise ValueError(f"{src.shape[0]} B into {out.numel()} B")
+        if self.device.type == "cpu":
+            out.numpy()[:] = src
+            return
+        n = src.shape[0]
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream()
+            for s in range(0, n, STAGE_BYTES):
+                k = self.turn
+                self.turn ^= 1
+                if self.done[k] is not None:
+                    self.done[k].synchronize()
+                m = min(STAGE_BYTES, n - s)
+                if self.bufs[k] is None or self.bufs[k].numel() < m:
+                    self.bufs[k] = torch.empty(m, dtype=torch.uint8,
+                                               pin_memory=True)
+                self.bufs[k].numpy()[:m] = src[s:s + m]
+                out[s:s + m].copy_(self.bufs[k][:m], non_blocking=True)
+                self.done[k] = torch.cuda.Event()
+                self.done[k].record(stream)
+
+    def finish(self) -> None:
+        for ev in self.done:
+            if ev is not None:
+                ev.synchronize()
+        self.done = [None, None]
+        self.bufs = [None, None]
 
 
 def upload_array(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array as a tensor of the same dtype and bits on ``device``.
-    On the CPU without a copy (a read-only memory map is copied). To a CUDA
-    device in STAGE_BYTES chunks through two pinned buffers in turn, each
-    refilled once its copy to the card is done: the host never copies the
-    whole array (a 34 GB hash table, a memory-mapped index), and the card's
-    copies run at the pinned rate while the host fills the other buffer."""
+    On the CPU without a copy (a read-only memory map is copied); to a
+    CUDA device through a ``Stager``."""
     a = np.ascontiguousarray(a)
     if device.type == "cpu":
         return torch.from_numpy(a if a.flags.writeable else a.copy())
     out = torch.empty(a.shape, device=device,
                       dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
-    src = a.reshape(-1).view(np.uint8)
-    n = src.shape[0]
-    if n == 0:
-        return out
-    dst = out.view(-1).view(torch.uint8)
-    bufs = [torch.empty(min(STAGE_BYTES, n), dtype=torch.uint8,
-                        pin_memory=True) for _ in range(2)]
-    done = [None, None]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream()
-        for i, s in enumerate(range(0, n, STAGE_BYTES)):
-            k = i % 2
-            if done[k] is not None:
-                done[k].synchronize()
-            m = min(STAGE_BYTES, n - s)
-            bufs[k].numpy()[:m] = src[s:s + m]
-            dst[s:s + m].copy_(bufs[k][:m], non_blocking=True)
-            done[k] = torch.cuda.Event()
-            done[k].record(stream)
-        for ev in done:
-            if ev is not None:
-                ev.synchronize()
+    if a.size:
+        st = Stager(device)
+        st.copy(out, a)
+        st.finish()
     return out
 
 
@@ -131,15 +167,22 @@ def from_numpy(fields: dict, statics: dict,
     return TorchDeviceIndex(**t, **s, n_sites=int(t["site_ra"].shape[0]))
 
 
-def max_run(sorted_keys, chunk: int = 1 << 26):
-    """Longest run of equal values in a sorted array, computed in chunks."""
+SCAN_ROWS = 1 << 26   # rows of a column read at a time for a maximum
+
+
+def max_run(sorted_keys, shift: int = 0):
+    """Longest run of equal values (of ``key >> shift``) in a sorted array,
+    computed in chunks of SCAN_ROWS rows."""
+    chunk = SCAN_ROWS
     n = sorted_keys.shape[0]
     if n == 0:
         return 1
     best = 1
     carry = 1
     for s in range(0, n, chunk):
-        seg = sorted_keys[max(s - 1, 0):min(s + chunk, n)]
+        seg = read_rows(sorted_keys, max(s - 1, 0), s + chunk)
+        if shift:
+            seg = seg >> np.asarray(shift, seg.dtype)
         neq = seg[1:] != seg[:-1]
         b = np.flatnonzero(neq)
         if b.size == 0:
@@ -212,31 +255,112 @@ class _DerivedCache:
             pass  # cache is best-effort (read-only index dir, disk full)
 
 
-def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5,
-                tables: bool = True):
-    """The engine's host tables, as the JAX package's
-    ``build_device_index(index, host_only=True)`` derives them (without the
-    retired prefilter). Returns (fields: name -> numpy, statics: dict);
-    ``fields`` also holds the padded ``snp_hi`` words, which no device
-    table keeps. ``tables=False`` (the sharded dictionary, which searches
-    its sorted rows) builds no hash table, jumpgate or window table: those
-    fields are empty and their statics 0."""
-    sites = index.sites
+def max_unambiguous_pos(ref) -> int:
+    """The largest position of an unambiguous ref row (flag 0), read in
+    chunks of SCAN_ROWS rows of the (memory-mapped) columns."""
+    best = 0
+    chunk = SCAN_ROWS
+    for s in range(0, ref.pos.shape[0], chunk):
+        p, f = read_rows(ref.pos, s, s + chunk), read_rows(ref.flag, s,
+                                                            s + chunk)
+        best = max(best, int(p[f == 0].max(initial=0)))
+    return best
 
-    max_pos = int(index.ref.pos[index.ref.flag == 0].max(initial=0))
-    if sites.pos.size:
-        max_pos = max(max_pos, int(sites.pos.max()))
+
+def site_tables(sites, max_pos: int):
+    """The genome-position bitmap of the sites (max_pos + 33 bits) and its
+    rank directory: a (words, 4) row [bitmap, rank, next bitmap, next
+    rank] a word."""
     nbits = max_pos + 33
-    bitmap = np.zeros((nbits + 31) // 32, np.uint32)
+    nw = (nbits + 31) // 32
+    bitmap = np.zeros(nw, np.uint32)
     sp = sites.pos.astype(np.int64)
     np.bitwise_or.at(bitmap, sp >> 5,
                      (np.uint32(1) << (sp & 31).astype(np.uint32)))
-    pc = np.bitwise_count(bitmap).astype(np.int64)
-    site_rank = np.concatenate([[0], np.cumsum(pc)[:-1]]).astype(np.int32)
-    site_dir2 = np.stack([bitmap, site_rank.view(np.uint32)], axis=1)
-    site_dir = np.concatenate(
-        [site_dir2, np.concatenate([site_dir2[1:],
-                                    np.zeros((1, 2), np.uint32)])], axis=1)
+    rank = np.zeros(nw, np.int32)   # sites before each word
+    np.cumsum(np.bitwise_count(bitmap[:-1]), dtype=np.int32, out=rank[1:])
+    rank = rank.view(np.uint32)
+    site_dir = np.zeros((nw, 4), np.uint32)
+    site_dir[:, 0] = bitmap
+    site_dir[:, 1] = rank
+    site_dir[:-1, 2] = bitmap[1:]
+    site_dir[:-1, 3] = rank[1:]
+    return bitmap, site_dir
+
+
+def _pad1(a, fill):
+    """An empty dictionary's column as one sentinel row that never produces
+    an event."""
+    if a.shape[0] == 0:
+        return np.full((1,) + a.shape[1:], fill, a.dtype)
+    return a
+
+
+def replicated_tables(index: VarGenoIndex):
+    """The tables that do not grow with the dictionaries, which every shard
+    of the sharded dictionary holds whole: the site bitmap and its rank
+    directory (up to the largest unambiguous position, read in chunks), the
+    aux rows, the Bloom words, and the sites' REF/ALT. Returns (fields:
+    name -> numpy, statics: the Bloom bits, aux rows and row counts)."""
+    sites = index.sites
+
+    max_pos = max_unambiguous_pos(index.ref)
+    if sites.pos.size:
+        max_pos = max(max_pos, int(sites.pos.max()))
+    bitmap, site_dir = site_tables(sites, max_pos)
+
+    ref_aux_a = _pad1(index.ref.aux, 0)
+    snp_aux_pos_a = _pad1(index.snp.aux_pos, 0)
+    snp_aux_snp_a = _pad1(index.snp.aux_snp, 0)
+    site_ref_a = _pad1(sites.ref, 0)
+    site_alt_a = _pad1(sites.alt, 0)
+    site_ra = (site_ref_a.astype(np.uint32)
+               | (site_alt_a.astype(np.uint32) << np.uint32(8)))
+    aux_all = np.concatenate([
+        np.stack([ref_aux_a.astype(np.uint32),
+                  np.zeros_like(ref_aux_a, np.uint32)], axis=-1),
+        np.stack([snp_aux_pos_a.astype(np.uint32),
+                  snp_aux_snp_a.astype(np.uint32)], axis=-1)])
+    statics = dict(
+        snp_bf_bits=index.snp_bf.bits, ref_bf_bits=index.ref_bf.bits,
+        n_ref_aux=int(ref_aux_a.shape[0]),
+        n_ref_rows=max(int(index.ref.kmers.shape[0]), 1),
+        n_snp_rows=max(int(index.snp.kmers.shape[0]), 1))
+    fields = dict(aux_all=aux_all, ref_bf=index.ref_bf.as_u32(),
+                  snp_bf=index.snp_bf.as_u32(), site_bitmap=bitmap,
+                  site_dir=site_dir, site_ra=site_ra)
+    return fields, statics
+
+
+def _cache_of(index: VarGenoIndex, statics: dict) -> "_DerivedCache":
+    return _DerivedCache(index, n_ref=statics["n_ref_rows"],
+                         n_snp=statics["n_snp_rows"])
+
+
+def scan_maxima(index: VarGenoIndex, statics: dict) -> tuple:
+    """(ref_scan_max, snp_scan_max): the largest block of ref rows sharing
+    their top 32 key bits and of SNP rows sharing their top 24, read in
+    chunks of the (memory-mapped) keys -- the jumpgates' block maxima
+    without the jumpgates -- and kept in the derived cache. ``statics``:
+    ``replicated_tables``'s."""
+    cache = _cache_of(index, statics)
+    if cache.has("ref_scan_max", "snp_scan_max"):
+        return cache.meta["ref_scan_max"], cache.meta["snp_scan_max"]
+    got = (max_run(index.ref.kmers, shift=32),
+           max_run(index.snp.kmers, shift=40))
+    cache.save(meta=dict(ref_scan_max=got[0], snp_scan_max=got[1]))
+    return got
+
+
+def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5):
+    """The engine's host tables, as the JAX package's
+    ``build_device_index(index, host_only=True)`` derives them (without the
+    retired prefilter): ``replicated_tables`` and the tables over the
+    dictionaries' rows. Returns (fields: name -> numpy, statics: dict);
+    ``fields`` also holds the padded ``snp_hi`` words, which no device
+    table keeps."""
+    fields, statics = replicated_tables(index)
+    cache = _cache_of(index, statics)
 
     def u32pair(k):
         return ((k >> np.uint64(32)).astype(np.uint32),
@@ -245,46 +369,26 @@ def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5,
     ref_hi, ref_lo = u32pair(index.ref.kmers)
     snp_hi, snp_lo = u32pair(index.snp.kmers)
 
-    # empty dictionaries get one sentinel row that never produces an event
-    def pad1(a, fill):
-        if a.shape[0] == 0:
-            return np.full((1,) + a.shape[1:], fill, a.dtype)
-        return a
-
-    ref_pos_a, ref_flag_a, ref_aux_a = index.ref.pos, index.ref.flag, \
-        index.ref.aux
+    ref_pos_a, ref_flag_a = index.ref.pos, index.ref.flag
     snp_pos_a, snp_info_a, snp_flag_a = (index.snp.pos, index.snp.snp,
                                          index.snp.flag)
-    snp_aux_pos_a, snp_aux_snp_a = index.snp.aux_pos, index.snp.aux_snp
     if ref_hi.shape[0] == 0:
-        ref_hi = pad1(ref_hi, 0xFFFFFFFF)
-        ref_lo = pad1(ref_lo, 0xFFFFFFFF)
-        ref_pos_a = pad1(ref_pos_a, 0xFFFFFFFF)
-        ref_flag_a = pad1(ref_flag_a, 1)
+        ref_hi = _pad1(ref_hi, 0xFFFFFFFF)
+        ref_lo = _pad1(ref_lo, 0xFFFFFFFF)
+        ref_pos_a = _pad1(ref_pos_a, 0xFFFFFFFF)
+        ref_flag_a = _pad1(ref_flag_a, 1)
     if snp_hi.shape[0] == 0:
-        snp_hi = pad1(snp_hi, 0xFFFFFFFF)
-        snp_lo = pad1(snp_lo, 0xFFFFFFFF)
-        snp_pos_a = pad1(snp_pos_a, 0xFFFFFFFF)
-        snp_info_a = pad1(snp_info_a, 0)
-        snp_flag_a = pad1(snp_flag_a, 1)
-    ref_aux_a = pad1(ref_aux_a, 0)
-    snp_aux_pos_a = pad1(snp_aux_pos_a, 0)
-    snp_aux_snp_a = pad1(snp_aux_snp_a, 0)
-    site_ref_a = pad1(sites.ref, 0)
-    site_alt_a = pad1(sites.alt, 0)
-    site_ra = (site_ref_a.astype(np.uint32)
-               | (site_alt_a.astype(np.uint32) << np.uint32(8)))
+        snp_hi = _pad1(snp_hi, 0xFFFFFFFF)
+        snp_lo = _pad1(snp_lo, 0xFFFFFFFF)
+        snp_pos_a = _pad1(snp_pos_a, 0xFFFFFFFF)
+        snp_info_a = _pad1(snp_info_a, 0)
+        snp_flag_a = _pad1(snp_flag_a, 1)
 
     from .hashtable import HostHashTable, build_hash_table
 
-    cache = _DerivedCache(index, n_ref=int(ref_hi.shape[0]),
-                          n_snp=int(snp_hi.shape[0]))
     tag = ("%g" % ht_target_load).replace(".", "p")
     ht_name = f"both_ht_{tag}"
-    if not tables:
-        both_tab = HostHashTable(table=np.zeros((0, 128), np.uint32), nb=0,
-                                 chain=0)
-    elif cache.has(ht_name, f"both_nb_{tag}", f"both_chain_{tag}"):
+    if cache.has(ht_name, f"both_nb_{tag}", f"both_chain_{tag}"):
         both_tab = HostHashTable(table=cache.load(ht_name),
                                  nb=cache.meta[f"both_nb_{tag}"],
                                  chain=cache.meta[f"both_chain_{tag}"])
@@ -312,19 +416,7 @@ def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5,
         maxblk = int(np.diff(jg64).max(initial=1))
         return jg64.astype(np.uint32), maxblk
 
-    n_ref_rows = int(ref_hi.shape[0])
-    n_snp_rows = int(snp_hi.shape[0])
-
-    if not tables:
-        ref_jg = snp_jg = np.zeros(0, np.uint32)
-        ref_win_rows = 0
-        if cache.has("ref_scan_max", "snp_scan_max"):
-            ref_scan_max = cache.meta["ref_scan_max"]
-            snp_scan_max = cache.meta["snp_scan_max"]
-        else:   # the jumpgates' block maxima, without the jumpgates
-            ref_scan_max = max_run(ref_hi)
-            snp_scan_max = max_run(snp_hi >> np.uint32(8))
-    elif cache.has("ref_jg", "snp_jg", "ref_win_rows", "ref_scan_max",
+    if cache.has("ref_jg", "snp_jg", "ref_win_rows", "ref_scan_max",
                    "snp_scan_max"):
         ref_jg = cache.load("ref_jg")
         snp_jg = cache.load("snp_jg")
@@ -364,26 +456,15 @@ def host_fields(index: VarGenoIndex, ht_target_load: float = 0.5,
          snp_flag_a.astype(np.uint32)
          | (snp_info_a.astype(np.uint32) << np.uint32(8))], axis=1)
     snp_test = np.stack([snp_lo, snp_hi & np.uint32(0xFF)], axis=1)
-    aux_all = np.concatenate([
-        np.stack([ref_aux_a.astype(np.uint32),
-                  np.zeros_like(ref_aux_a, np.uint32)], axis=-1),
-        np.stack([snp_aux_pos_a.astype(np.uint32),
-                  snp_aux_snp_a.astype(np.uint32)], axis=-1)])
 
-    fields = dict(
+    fields.update(
         both_ht=both_tab.table, ref_jg=ref_jg, snp_jg=snp_jg,
-        ref_hi=ref_hi, ref_lo=ref_lo, ref_meta=ref_meta, aux_all=aux_all,
-        snp_meta=snp_meta, snp_test=snp_test,
-        ref_bf=index.ref_bf.as_u32(), snp_bf=index.snp_bf.as_u32(),
-        site_bitmap=bitmap, site_dir=site_dir, site_ra=site_ra,
-        snp_hi=snp_hi)
-    statics = dict(
-        snp_bf_bits=index.snp_bf.bits, ref_bf_bits=index.ref_bf.bits,
-        n_ref_aux=int(ref_aux_a.shape[0]),
+        ref_hi=ref_hi, ref_lo=ref_lo, ref_meta=ref_meta,
+        snp_meta=snp_meta, snp_test=snp_test, snp_hi=snp_hi)
+    statics.update(
         both_ht_nb=both_tab.nb, both_ht_chain=both_tab.chain,
         ref_win_rows=ref_win_rows, ref_scan_max=ref_scan_max,
-        snp_scan_max=snp_scan_max,
-        n_ref_rows=n_ref_rows, n_snp_rows=n_snp_rows)
+        snp_scan_max=snp_scan_max)
     return fields, statics
 
 

@@ -1,4 +1,7 @@
-"""Jax-free copy of ``vargeno_tpu/index/bloom.py``.
+"""Jax-free port of ``vargeno_tpu/index/bloom.py``, no longer a pure copy:
+``build_snp_bf`` reads each SNP's 32 left bases instead of whole-chromosome
+prefix sums and rolling k-mers; its filter must equal the JAX
+``build_snp_bf``'s bit for bit (tests/test_torch_wgs_stream.py).
 
 Bloom filter construction as bit-packed numpy/uint arrays.
 
@@ -198,23 +201,21 @@ def build_snp_bf(seqs: List[Seq], vcf_path: str, snp_bits: int) -> BitVector:
     groups = {}
     for i, s in enumerate(c_seq):
         groups.setdefault(id(s), (s, []))[1].append(i)
+    left = np.arange(-32, 0, dtype=np.int64)
     for s, rows_l in groups.values():
-        rows = np.asarray(rows_l, np.int64)
         codes = s.codes_raw()
-        over4 = np.zeros(codes.shape[0] + 1, np.int64)
-        np.cumsum(codes > 4, out=over4[1:])
-        over3 = np.zeros(codes.shape[0] + 1, np.int64)
-        np.cumsum(codes > 3, out=over3[1:])
-        p = pos_a[rows]
-        bad_char[rows] = (over4[p] - over4[p - 32]) > 0
-        has_n[rows] = (over3[p] - over3[p - 32]) > 0
-        roll = None
-        ok = rows[~has_n[rows]]
-        if ok.size:
-            from ..index.dictgen import _rolling_kmers_of
-
-            roll = _rolling_kmers_of(codes)
-            kmer_a[ok] = roll[pos_a[ok] - 32]
+        for r0 in range(0, len(rows_l), 1 << 20):
+            rows = np.asarray(rows_l[r0:r0 + (1 << 20)], np.int64)
+            win = codes[pos_a[rows, None] + left[None, :]]   # (r, 32)
+            bad_char[rows] = (win > 4).any(1)
+            n_free = ~(win > 3).any(1)
+            has_n[rows] = ~n_free
+            # the left k-mer, base t at bits 2t (the rolling k-mers')
+            w = win[n_free].astype(np.uint64)
+            k = np.zeros(w.shape[0], np.uint64)
+            for t in range(32):
+                k |= w[:, t] << np.uint64(2 * t)
+            kmer_a[rows[n_free]] = k
 
     alt_n = (alt_a == "N") | (alt_a == "n")
     # '' passes the C substring test (strstr semantics of `x in "ACGTacgt"`)

@@ -1,4 +1,6 @@
-"""Jax-free copy of ``vargeno_tpu/index/dictgen.py``.
+"""Jax-free port of ``vargeno_tpu/index/dictgen.py``, no longer a pure copy:
+its arrays must equal those of the JAX ``build_ref_dict`` and
+``build_snp_dict_from_vcf`` bit for bit (tests/test_torch_wgs_stream.py).
 
 Index ("dictgen") build: sorted 32-mer dictionaries as flat numpy arrays.
 
@@ -14,6 +16,12 @@ Output semantics are bit-identical to the reference's .dict files:
   its positions stored in generation order, zero-padded to 10 columns;
 - a k-mer with >10 positions gets pos=POS_AMBIGUOUS and consumes no aux row
   (src/dictgen.c:116-128).
+
+Where the JAX module holds whole-genome temporaries, this one does not:
+the ref dictionary is built in buckets of the key's top bits (one below
+~89M rows), each sorted and grouped on its own and compacted in place
+(``build_ref_dict``), and the SNP dictionary reads each SNP's 63 covering
+bases instead of a rolling k-mer array of the whole chromosome.
 """
 
 from __future__ import annotations
@@ -94,7 +102,7 @@ def _group_ambiguity(kmers_sorted: np.ndarray, aux_cols: int):
 
 
 def _build_ref_rows_lean(kmers: np.ndarray, pos: np.ndarray,
-                         aux_cols: int):
+                         aux_cols: int, aux_base: int = 0):
     """Memory-lean equivalent of _group_ambiguity + row assembly for
     SORTED input, exploiting that duplicate k-mers are a tiny minority of
     a genome: full-width temporaries are limited to two bool masks and the
@@ -102,8 +110,9 @@ def _build_ref_rows_lean(kmers: np.ndarray, pos: np.ndarray,
     allocates several 24 GB int64 arrays (and re-sorts) -- it OOM'd the
     whole-genome rehearsal on a 125 GB host.
 
-    Returns (uniq, out_pos, flag, aux_rows). Bit-identical to the
-    np.unique path (tests/test_lean_dictgen.py)."""
+    Returns (uniq, out_pos, flag, aux_rows), aux rows numbered from
+    ``aux_base``. Bit-identical to the np.unique path
+    (tests/test_lean_dictgen.py)."""
     n = kmers.shape[0]
     if n == 0:
         return (kmers, pos.astype(np.uint32), np.zeros(0, np.uint8),
@@ -137,7 +146,7 @@ def _build_ref_rows_lean(kmers: np.ndarray, pos: np.ndarray,
         # n-wide cumsum/int64 arrays)
         ui = _rank_at(is_first, group_row)
         has_aux = counts_dup <= aux_cols
-        aux_id = np.cumsum(has_aux, dtype=np.int64) - 1
+        aux_id = np.cumsum(has_aux, dtype=np.int64) - 1 + aux_base
         out_pos[ui] = np.where(has_aux, aux_id,
                                np.int64(POS_AMBIGUOUS)).astype(np.uint32)
         # flag already AMBIGUOUS for these groups
@@ -191,95 +200,138 @@ def _aux_rows(first, counts, sel, values, aux_cols, dtype):
     return out
 
 
+REF_BUCKET_BYTES = 1 << 30   # a bucket's sort scratch (12 B a row)
+
+
+def ref_buckets(rows: int) -> int:
+    """The power-of-two count of key-prefix buckets that keeps a bucket's
+    sort scratch near REF_BUCKET_BYTES for ``rows`` uniformly spread keys
+    (at most 2**16)."""
+    need = -(-rows * 12 // REF_BUCKET_BYTES)
+    return min(1 << max(need - 1, 0).bit_length(), 1 << 16)
+
+
+def _kmer_chunks(codes: np.ndarray, ch: int):
+    """(start, rolling k-mers, valid) over ``ch``-base chunks of ``codes``
+    (31 bases of overlap)."""
+    from .. import native
+
+    n = codes.shape[0]
+    for s0 in range(0, max(n - 31, 0), ch):
+        e0 = min(s0 + ch + 31, n)
+        if native.available() and (e0 - s0) > 4096:
+            roll, ok = native.rolling_kmers(codes[s0:e0])
+        else:
+            roll = np_rolling_kmers_u64(codes[s0:e0])
+            ok = ~np_window_has_n(codes[s0:e0])
+        yield s0, roll, ok
+
+
+def _sort_kv(keys: np.ndarray, vals: np.ndarray) -> None:
+    """Stable in-place sort of (keys, vals) by key."""
+    from .. import native
+
+    n = keys.shape[0]
+    if n >= (1 << 16) and n < (1 << 32) and native.available() \
+            and native.radix_sort_kv(keys, vals):
+        return
+    order = np.argsort(keys, kind="stable")
+    keys[:] = keys[order]
+    vals[:] = vals[order]
+
+
 def build_ref_dict(seqs: List[Seq], aux_cols: int = AUX_TABLE_COLS_DEF
                    ) -> Tuple[RefDict, int]:
     """Build the reference dictionary from dict-parser-normalized sequences.
 
     Positions are 1-based offsets into the concatenation of all chromosomes
-    in FASTA order (src/dictgen.c:289, 303-320). Returns (dict, max_pos).
-    """
-    # two passes: count valid k-mers, then fill PREALLOCATED output arrays
-    # chunk-by-chunk. At whole-genome scale (3G k-mers = 24 GB of keys) the
-    # list-append + concatenate + fancy-index pipeline held 3-4 transient
-    # full-width copies and OOM'd a 125 GB host; this path holds exactly
-    # one (plus the sort permutation).
-    from .. import native
+    in FASTA order (src/dictgen.c:289, 303-320). Returns (dict, max_pos),
+    equal to the JAX ``build_ref_dict``'s.
 
-    CH = 1 << 27   # 128M-base chunks, 31-base overlap
+    Built in ``ref_buckets`` buckets of the key's top bits. Equal keys
+    share a bucket, and each bucket is filled in genome order, so a stable
+    sort of each bucket and the buckets in turn give the order of one
+    global stable sort; aux rows are numbered across buckets. Holds the
+    keys and positions once (12 B a row), one bucket's sort scratch, and a
+    1 B flag a row; the rows are compacted in place."""
+    upper = sum(s.size - 31 for s in seqs if s.size >= 32)
+    nb = ref_buckets(upper)
+    bits = nb.bit_length() - 1
+    shift = np.uint64(64 - bits)
+    CH = 1 << 25
 
-    def chunks_of(codes):
-        n = codes.shape[0]
-        for s0 in range(0, max(n - 31, 0), CH):
-            e0 = min(s0 + CH + 31, n)
-            if native.available() and (e0 - s0) > 4096:
-                roll, ok = native.rolling_kmers(codes[s0:e0])
-            else:
-                roll = np_rolling_kmers_u64(codes[s0:e0])
-                ok = ~np_window_has_n(codes[s0:e0])
-            yield s0, roll, ok
+    def bucket_of(keys):
+        return (keys >> shift).astype(np.uint16)
 
-    total = 0
-    per_seq_counts = []
+    counts = np.zeros(nb, np.int64)
     for s in seqs:
-        cnt = 0
         if s.size >= 32:
-            codes = s.codes_normalized()
-            for _s0, _roll, ok in chunks_of(codes):
-                cnt += int(np.count_nonzero(ok))
-        per_seq_counts.append(cnt)
-        total += cnt
+            for _s0, roll, ok in _kmer_chunks(s.codes_normalized(), CH):
+                if nb == 1:
+                    counts[0] += int(np.count_nonzero(ok))
+                else:
+                    counts += np.bincount(bucket_of(roll[ok]), minlength=nb)
+    starts = np.zeros(nb + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    total = int(starts[-1])
 
     kmers = np.empty(total, np.uint64)
     pos = np.empty(total, np.uint32)
-    fill = 0
+    cursor = starts[:-1].copy()
     index = 1  # 1-based global position cursor
     for s in seqs:
         if s.size >= 32:
-            codes = s.codes_normalized()
-            for s0, roll, ok in chunks_of(codes):
+            for s0, roll, ok in _kmer_chunks(s.codes_normalized(), CH):
                 sel = np.flatnonzero(ok)
-                m = sel.shape[0]
-                kmers[fill:fill + m] = roll[sel]
-                pos[fill:fill + m] = (sel + (index + s0)).astype(np.uint32)
-                fill += m
+                key = roll[sel]
+                p = (sel + (index + s0)).astype(np.uint32)
+                del sel
+                if nb == 1:
+                    c = np.array([key.shape[0]])
+                else:
+                    b = bucket_of(key)
+                    order = np.argsort(b, kind="stable")
+                    c = np.bincount(b, minlength=nb)
+                    key, p = key[order], p[order]
+                    del b, order
+                off = 0
+                for j in np.flatnonzero(c):
+                    m, w = int(c[j]), int(cursor[j])
+                    kmers[w:w + m] = key[off:off + m]
+                    pos[w:w + m] = p[off:off + m]
+                    cursor[j] += m
+                    off += m
         index += s.size
-    assert fill == total
+    assert np.array_equal(cursor, starts[1:])
 
-    sorted_inplace = False
-    if total >= (1 << 16) and total < (1 << 32) and native.available():
-        # in-place native kv radix sort: no order array, no fancy-index
-        # copies (the argsort path's ~36 B/key of temporaries OOM'd the
-        # 3 Gb whole-genome build)
-        sorted_inplace = native.radix_sort_kv(kmers, pos)
-    if not sorted_inplace:
-        order = _stable_argsort_u64(kmers)
-        kmers = kmers[order]   # one transient full-width copy
-        pos = pos[order]
-        del order
-
-    max_pos = int(pos.max()) if pos.size else 0
-    if total >= (1 << 26):
-        uniq, out_pos, flag, aux = _build_ref_rows_lean(kmers, pos,
-                                                        aux_cols)
-        return RefDict(kmers=uniq, pos=out_pos, flag=flag, aux=aux), max_pos
-
-    uniq, first, counts, pos_or_aux, flag, has_aux = _group_ambiguity(
-        kmers, aux_cols)
-    out_pos = np.where(counts == 1, pos[np.minimum(first, len(pos) - 1)]
-                       if len(pos) else 0, pos_or_aux).astype(np.uint32)
-    aux = _aux_rows(first, counts, has_aux, pos, aux_cols, np.uint32)
-    return RefDict(kmers=uniq, pos=out_pos, flag=flag, aux=aux), max_pos
-
-
-def _rolling_kmers_of(codes: np.ndarray) -> np.ndarray:
-    """All 32-window rolling k-mers of a code array (no validity filter;
-    callers only read windows they have proven N-free)."""
-    from .. import native
-
-    if codes.size > 4096 and native.available():
-        roll, _ = native.rolling_kmers(codes)
-        return roll
-    return np_rolling_kmers_u64(codes)
+    flag = np.empty(total, np.uint8)
+    aux_parts = []
+    n_aux = 0
+    w = 0
+    max_pos = 0
+    for j in range(nb):
+        a, e = int(starts[j]), int(starts[j + 1])
+        if a == e:
+            continue
+        k, p = kmers[a:e], pos[a:e]
+        max_pos = max(max_pos, int(p.max()))
+        _sort_kv(k, p)
+        uniq, out_pos, fl, aux = _build_ref_rows_lean(k, p, aux_cols,
+                                                      aux_base=n_aux)
+        del k, p
+        u = uniq.shape[0]
+        kmers[w:w + u] = uniq
+        pos[w:w + u] = out_pos
+        flag[w:w + u] = fl
+        del uniq, out_pos, fl
+        w += u
+        n_aux += aux.shape[0]
+        aux_parts.append(aux)
+    for a in (kmers, pos, flag):   # no view of them is left
+        a.resize(w, refcheck=False)
+    aux = (np.concatenate(aux_parts) if aux_parts
+           else np.zeros((0, aux_cols), np.uint32))
+    return RefDict(kmers=kmers, pos=pos, flag=flag, aux=aux), max_pos
 
 
 def _find_seq_by_name(seqs: List[Seq], name: str):
@@ -418,23 +470,34 @@ def build_snp_dict_from_vcf(
     jj = np.arange(32, dtype=np.int64)
     off_bits = (np.uint64(2) * (np.uint64(31) - jj.astype(np.uint64)))
     clear_mask = ~(np.uint64(3) << off_bits)           # (32,)
+    around = np.arange(-32, 32, dtype=np.int64)         # bases ii-32..ii+31
     for s, rows_l in seq_ids.values():
-        rows_a = np.asarray(rows_l, np.int64)
         codes = norm_codes(s)
-        badN = np.zeros(codes.shape[0] + 1, np.int64)
-        np.cumsum(codes > 3, out=badN[1:])
-        ii = idx_a[rows_a]
-        left_ok = (badN[ii] - badN[ii - 32]) == 0      # window[:32] N-free
-        right_ok = (badN[ii + 32] - badN[ii + 1]) == 0  # rest, excl. the SNP
-        ok = left_ok & right_ok
-        keep[rows_a] = ok
-        rows_ok = rows_a[ok]
-        if rows_ok.size == 0:
-            continue
-        roll = _rolling_kmers_of(codes)
-        s_j = idx_a[rows_ok, None] - 31 + jj[None, :]   # (r, 32) window starts
-        kk_all[rows_ok] = ((roll[s_j] & clear_mask[None, :])
-                           | (alt_a[rows_ok, None] << off_bits[None, :]))
+        for r0 in range(0, len(rows_l), 1 << 20):
+            rows_a = np.asarray(rows_l[r0:r0 + (1 << 20)], np.int64)
+            win = codes[idx_a[rows_a, None] + around[None, :]]   # (r, 64)
+            bad = win > 3
+            # window[:32] N-free, and the rest excluding the SNP base
+            ok = ~bad[:, :32].any(1) & ~bad[:, 33:].any(1)
+            del bad
+            keep[rows_a] = ok
+            rows_ok = rows_a[ok]
+            if rows_ok.size == 0:
+                continue
+            # the 32 covering k-mers: base t of a window at bits 2t, as
+            # the rolling k-mers have them
+            w = win[ok, 1:].astype(np.uint64)                  # (r, 63)
+            del win
+            k = np.zeros(rows_ok.shape[0], np.uint64)
+            for t in range(32):
+                k |= w[:, t] << np.uint64(2 * t)
+            kk = np.empty((rows_ok.shape[0], 32), np.uint64)
+            kk[:, 0] = k
+            for j in range(1, 32):
+                k = (k >> np.uint64(2)) | (w[:, j + 31] << np.uint64(62))
+                kk[:, j] = k
+            kk_all[rows_ok] = ((kk & clear_mask[None, :])
+                               | (alt_a[rows_ok, None] << off_bits[None, :]))
 
     rows_keep = np.flatnonzero(keep)
     kmers = kk_all[rows_keep].reshape(-1)

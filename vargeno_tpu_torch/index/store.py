@@ -1,4 +1,9 @@
-"""Jax-free copy of ``vargeno_tpu/index/store.py``.
+"""Jax-free port of ``vargeno_tpu/index/store.py``, no longer a pure copy:
+``save_dir`` also drops the port's own derived-table cache
+(``derived_torch/``) of a prior index, ``exists`` needs the directory's
+meta.json (written last), ``load_dir`` keeps ``snp_locations`` mapped, and
+``read_rows`` reads a chunk of a memory-mapped column from its file. The arrays it writes must equal the
+JAX ``build_index``'s (tests/test_torch_wgs_stream.py).
 
 Index persistence and interop with the reference's on-disk formats.
 
@@ -195,11 +200,12 @@ def save_dir(prefix: str, index: VarGenoIndex) -> None:
 
     d = prefix + ".vgt"
     os.makedirs(d, exist_ok=True)
-    derived = os.path.join(d, "derived")
-    if os.path.isdir(derived):  # stale engine-table cache of a prior index
-        import shutil
+    for sub in ("derived", "derived_torch"):
+        derived = os.path.join(d, sub)
+        if os.path.isdir(derived):  # stale table cache of a prior index
+            import shutil
 
-        shutil.rmtree(derived)
+            shutil.rmtree(derived)
     vals = dict(
         ref_kmers=index.ref.kmers, ref_pos=index.ref.pos,
         ref_flag=index.ref.flag, ref_aux=index.ref.aux,
@@ -264,14 +270,36 @@ def load_dir(prefix: str, mmap: bool = True) -> VarGenoIndex:
         snp_bf=BitVector(meta["snp_bf_bits"], ld("snp_bf_words")),
         chrlens=[(str(n), int(l)) for n, l in meta["chrlens"]],
         sites=sites,
-        snp_locations=np.asarray(locs).astype(bool) if locs.size else None,
+        # a view of the map (bool on disk): a copy would read the whole
+        # genome-length file at every load
+        snp_locations=np.asarray(locs, bool) if locs.size else None,
         prefix=prefix)
 
 
+def read_rows(a: np.ndarray, s: int, e: int) -> np.ndarray:
+    """Rows ``s:e`` of an index array as an array of their own. A memory
+    map of a whole ``.npy`` file is read from the file, so that streaming a
+    genome-scale column through memory leaves none of its pages mapped into
+    the process."""
+    import mmap
+
+    e = min(e, a.shape[0])
+    if not (isinstance(a, np.memmap) and isinstance(a.base, mmap.mmap)
+            and a.flags.c_contiguous):
+        return np.asarray(a[s:e])
+    row = a.strides[0] if a.ndim else a.itemsize
+    out = np.fromfile(a.filename, a.dtype, count=max(e - s, 0) * row
+                      // a.itemsize, offset=a.offset + s * row)
+    return out.reshape((max(e - s, 0),) + a.shape[1:])
+
+
 def exists(prefix: str) -> bool:
+    """A whole native index is there: ``save_dir`` writes its meta.json
+    last, so a directory that a stopped build left half-written (or an
+    empty one made for the index) does not count."""
     import os
 
-    return (os.path.isdir(prefix + ".vgt")
+    return (os.path.isfile(os.path.join(prefix + ".vgt", "meta.json"))
             or os.path.exists(prefix + ".vgt.npz"))
 
 

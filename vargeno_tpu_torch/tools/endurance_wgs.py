@@ -27,7 +27,9 @@ leg B ends before that point or dies before any checkpoint.
 
 Expects the index already built (``rehearse_wgs --phase index`` with the
 same ``--cache``, ``--mb``, ``--snps`` and ``--base-reads`` as its
-``--reads``). The last line is one JSON object ``{"endurance": ...}``.
+``--reads``). The last line is one JSON object ``{"endurance": ...}``: each
+leg's ``{"geno": ...}`` line (each stage's peak RSS among its numbers) and
+the host's free disk, processor count and MemTotal before the legs.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import sys
 import threading
 import time
 
-from .rehearse_wgs import default_cache
+from .rehearse_wgs import default_cache, host_info
 
 
 def leg_command(args, extra) -> list:
@@ -133,6 +135,7 @@ def main(argv=None) -> int:
     args.cache = args.cache or default_cache()
 
     t0 = time.perf_counter()
+    host = host_info(args.cache)
     ck = os.path.join(args.cache, "endurance_ck")
     for suf in (".npz", ".json"):
         try:
@@ -143,8 +146,8 @@ def main(argv=None) -> int:
 
     def fail(msg) -> int:
         print(f"[endurance] FAIL: {msg}", flush=True)
-        print(json.dumps({"endurance": dict(ok=False, error=msg,
-                                            legs=legs)}), flush=True)
+        print(json.dumps({"endurance": dict(ok=False, error=msg, legs=legs,
+                                            host=host)}), flush=True)
         return 1
 
     # Leg A: uninterrupted ground truth
@@ -187,7 +190,8 @@ def main(argv=None) -> int:
           f"offset {offset}, {total_s:.0f}s total)", flush=True)
     print(json.dumps({"endurance": dict(
         ok=True, reads=args.reads, kill_at=kill_at, killed_at_offset=offset,
-        vcf_bytes=len(full), seconds=total_s, legs=legs)}), flush=True)
+        vcf_bytes=len(full), seconds=total_s, legs=legs, host=host)}),
+        flush=True)
     return 0
 
 

@@ -7,7 +7,10 @@ torch device through the sharded dictionary (``dist/sharded_dict.py``, D =
 the number of ``--devices``, 1 by default) or the hash-table runner
 (``--runner ht``, ``engine/geno.py``). Logs phase timings with the
 process's peak RSS, and with the device's peak memory and the index's
-device bytes at the end of ``geno``.
+device bytes at the end of ``geno``. Each JSON line also carries each
+stage's own peak RSS (``stage_peak_rss``: the largest RSS sampled every
+10 ms through the stage), and the host's free disk, processor count and
+MemTotal as the run found them (``host``).
 
     python -m vargeno_tpu_torch.tools.rehearse_wgs [--mb 3000]
         [--snps 5000000] [--reads 65536] [--cache DIR] [--phase all]
@@ -30,9 +33,11 @@ line each (``{"index": ...}``, ``{"geno": ...}``) with what it measured.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import resource
+import shutil
 import sys
 import tempfile
 import threading
@@ -46,6 +51,51 @@ T0 = time.time()
 def peak_rss() -> int:
     """Peak resident bytes of this process (Linux reports KiB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+RSS_EVERY_S = 0.01   # stage_rss's sampling period
+
+
+def _vm_rss() -> int:
+    """This process's resident bytes now (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+@contextlib.contextmanager
+def stage_rss(into: dict, name: str):
+    """Record the peak RSS of the ``with`` body as ``into[name]``: the
+    largest VmRSS sampled every RSS_EVERY_S seconds through it. (Resetting
+    the kernel's high-water mark through /proc/self/clear_refs would be
+    exact, but some kernels ignore the reset: the H100 host's does.)"""
+    peak = [_vm_rss()]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(RSS_EVERY_S):
+            peak[0] = max(peak[0], _vm_rss())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+        into[name] = max(peak[0], _vm_rss())
+
+
+def host_info(path: str) -> dict:
+    """Free bytes of ``path``'s file system, the processors this process
+    may run on (``nproc``) and the host's MemTotal."""
+    with open("/proc/meminfo") as f:
+        total = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemTotal:"))
+    return dict(disk_free=shutil.disk_usage(path).free,
+                nproc=len(os.sched_getaffinity(0)), mem_total=total)
 
 
 def log(msg):
@@ -96,8 +146,9 @@ def gen_inputs(cache, mb, n_snps, n_reads, read_len=101, seed=20260819):
             f.write(buf.tobytes())
 
     log(f"writing {n_snps} VCF rows")
-    pos = np.sort(rng.choice(np.arange(64, n - 64, dtype=np.int64),
-                             size=n_snps, replace=False))
+    # the JAX tool's draw, choice(arange(64, n - 64)), without the
+    # 8-byte-a-base arange (the same numbers: choice draws indices)
+    pos = np.sort(64 + rng.choice(n - 128, size=n_snps, replace=False))
     ref_codes = codes[pos]
     alt_codes = (ref_codes + rng.integers(1, 4, n_snps).astype(np.uint8)) % 4
     caf = rng.choice([0.99, 0.9, 0.7], n_snps)
@@ -413,11 +464,15 @@ def main(argv=None) -> int:
             return 1
 
     os.makedirs(args.cache, exist_ok=True)
+    host = host_info(args.cache)
+    stages: dict = {}
     t0 = time.perf_counter()
-    fa, vcf, fq = gen_inputs(args.cache, args.mb, args.snps, args.reads)
+    with stage_rss(stages, "gen"):
+        fa, vcf, fq = gen_inputs(args.cache, args.mb, args.snps, args.reads)
     gen_s = time.perf_counter() - t0
     if args.extra_reads:
-        fq = gen_extra_reads(args.cache, fa, vcf, args.extra_reads)
+        with stage_rss(stages, "extra_reads"):
+            fq = gen_extra_reads(args.cache, fa, vcf, args.extra_reads)
     extra_s = time.perf_counter() - t0 - gen_s
     if args.phase == "gen":
         return 0
@@ -430,20 +485,26 @@ def main(argv=None) -> int:
         from ..index.build import build_index
 
         t0 = time.perf_counter()
-        build_index(fa, vcf, prefix)
+        build_stages: dict = {}
+        with stage_rss(stages, "build"):
+            build_index(fa, vcf, prefix, timings=build_stages)
         build_s = time.perf_counter() - t0
-        log("index build: done")
+        log(f"index build: done (peak RSS {stages['build']} B; seconds by "
+            f"stage {build_stages})")
         print(json.dumps({"index": dict(
             mb=args.mb, snps=args.snps, gen_s=gen_s, extra_reads_s=extra_s,
-            build_s=build_s,
+            build_s=build_s, build_stages_s=build_stages,
             disk_bytes=dir_bytes(prefix + ".vgt"),
-            peak_rss_bytes=peak_rss())}), flush=True)
+            peak_rss_bytes=peak_rss(), stage_peak_rss=stages,
+            host=host)}), flush=True)
     if args.phase == "index":
         return 0
 
+    stages = {}
     log("loading index (mmap)")
     t0 = time.perf_counter()
-    index = store.load(prefix)
+    with stage_rss(stages, "load"):
+        index = store.load(prefix)
     load_s = time.perf_counter() - t0
     log(f"index loaded: {index.ref.kmers.shape[0]} ref rows, "
         f"{index.snp.kmers.shape[0]} snp rows")
@@ -453,29 +514,35 @@ def main(argv=None) -> int:
                  f"{devices}")
     log(f"building {what}")
     t0 = time.perf_counter()
-    runner = make_runner(index, geno_config(args.batch), args.runner,
-                         args.device, devices)
+    with stage_rss(stages, "setup"):
+        runner = make_runner(index, geno_config(args.batch), args.runner,
+                             args.device, devices)
     setup_s = time.perf_counter() - t0
-    log("runner ready; streaming reads")
-    got = stream(runner, fq, args.limit_batches, args.checkpoint,
-                 args.checkpoint_every, args.progress_every)
-    got.update(runner=args.runner, devices=devices, load_s=load_s,
+    log(f"runner ready (peak RSS {stages['setup']} B); streaming reads")
+    with stage_rss(stages, "geno"):
+        got = stream(runner, fq, args.limit_batches, args.checkpoint,
+                     args.checkpoint_every, args.progress_every)
+    got.update(peak_rss_bytes=peak_rss(), runner=args.runner, devices=devices, load_s=load_s,
                setup_s=setup_s, index_device_bytes=index_device_bytes(runner),
-               peak_device_bytes=peak_device_bytes(runner),
-               peak_rss_bytes=peak_rss())
+               peak_device_bytes=peak_device_bytes(runner))
     log(f"geno done: {got['reads']} reads in {got['seconds']:.1f}s "
         f"({got['reads_s']:.0f} reads/s on {', '.join(devices)}), "
         f"stats={runner.stats_totals}, peak device memory "
         f"{got['peak_device_bytes']} B, index {got['index_device_bytes']} B "
         f"on the device")
     out = os.path.join(args.cache, args.out)
-    runner.write_vcf(vcf, out)
+    t0 = time.perf_counter()
+    with stage_rss(stages, "vcf"):
+        runner.write_vcf(vcf, out)
+    got["vcf_s"] = time.perf_counter() - t0
     with open(out) as f:
         log(f"vcf written: {sum(1 for _ in f)} lines")
     rc = 0
     if args.spot_parity:
-        got["spot"] = spot_parity(index, runner, fq, args.spot_parity)
+        with stage_rss(stages, "spot"):
+            got["spot"] = spot_parity(index, runner, fq, args.spot_parity)
         rc = 1 if got["spot"]["mismatches"] else 0
+    got.update(stage_peak_rss=stages, host=host)
     print(json.dumps({"geno": got}), flush=True)
     return rc
 

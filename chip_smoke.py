@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR | --all-cards | --wgs]
+    python3 chip_smoke.py [--parent DIR | --all-cards | --wgs | --wgs-cards
+                           | --all-cards --wgs-cards]
 
 ``--all-cards`` runs only the build and phase ``cards`` (below) on every
 visible card (2 or more). ``--wgs`` runs only the build and phase ``wgs``
-(below): the whole genome on one card.
+(below): the whole genome on one card. ``--wgs-cards`` (four visible cards;
+refused otherwise) runs the build, then phase ``wgs_cards`` (below): the
+whole genome with a shard a card; beside its synthesis and index build run
+phases 3, 4 and 13 and, with ``--all-cards`` too, phase ``cards`` (whose
+reads/s are then taken beside that host build). A failed phase of that mode
+is recorded and the others still run; the run then exits 1.
 
 ``--parent DIR`` names a checkout of an earlier commit of this repository,
 unpacked into a directory inside this one (``git archive <commit> | tar -x
@@ -139,13 +145,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and the placement of (c) (``rehearse_wgs.stage_rss``: the largest RSS
    sampled every 10 ms through the stage).
 
-Phase order: 1, 2, then 3-6 and 11 beside genome (a) and (e) and beside
-the making of phase 7's dataset and index (a process of its own, host
-only), then 7-10 and genome (b)-(d); phases 7-10 never run beside those
-processes, so their reads/s stays comparable with earlier runs. The log
-gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries phase
-9's and phase 10's numbers, ``{"geno_bench": ...}`` phase 8's, ``{"fuzz":
-...}`` phase 11's, ``{"genome": ...}`` phase 12's.
+13. scaling -- the scaling tools on one card, as checks of their paths
+   (no scaling number): ``python -m vargeno_tpu_torch.tools.bench_scaling
+   --devices 1``; the tool's ``run_point`` at D = 2 naming cuda:0 twice,
+   both modes, on its synthetic draw (2 Mb, 5,000 SNPs, 8 batches of
+   2,048 reads a shard); ``python -m
+   vargeno_tpu_torch.tools.bench_scaling_mh --procs 2 --devices-per-proc
+   1`` naming cuda:0 for both processes over gloo (NCCL refuses a card
+   shared by two processes; the tool's own default is nccl). Every point:
+   no overflow left, the vote kernel launched in each process, the timed
+   window's reads the tool's batches. Prints the phase's seconds.
+
+Phase order: 1, 2, then 3-6, 11 and 13 beside genome (a) and (e) and
+beside the making of phase 7's dataset and index (a process of its own,
+host only), then 7-10 and genome (b)-(d); phases 7-10 never run beside
+those processes, so their reads/s stays comparable with earlier runs. The
+log gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries
+phase 9's and phase 10's numbers, ``{"geno_bench": ...}`` phase 8's,
+``{"fuzz": ...}`` phase 11's, ``{"scaling": ...}`` phase 13's,
+``{"genome": ...}`` phase 12's.
 
 wgs (``--wgs`` only) -- the JAX package's headline scale
    (docs/WORKFLOWS.md:62-110; hg19 + dbSNP-common): a 3,000 Mb genome,
@@ -173,10 +191,52 @@ cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    pass's: one process driving every card (replicated index: the shard
    steps in turn from one thread; sharded dictionary: a thread a shard)
    against one process a card (replicated index over nccl; sharded
-   dictionary over nccl and over gloo). Prints a ``{"cards": ...}`` line. The last two
-lines are a JSON object describing each kernel and the
-result line ``{"ok": true, "device": {...}}``. The dataset and index are
-cached under ``.smoke_cache/`` next to this file.
+   dictionary over nccl and over gloo). Then the scaling tools on bench.py's
+   genome and SNPs with enough reads for 17 global batches of 32,768 reads
+   a card at the largest D (2,228,224 reads on four cards), a cache of its
+   own: ``bench_scaling``'s ``run_point`` at D = 1, 2, 4 (routed from 2),
+   ``bench_scaling_mh``'s clusters over nccl at n x 1 and n / 2 x 2
+   processes x cards, both modes, 16 global batches a point; each point's
+   reads/s, efficiency (a single-process point against its mode's first
+   point, as the JAX tool takes it; a multi-process point against one
+   card's dp rate), every card's peak device memory and every process's
+   vote launches; no overflow, the vote kernel launched in every process.
+   The scaling workload is made beside the passes above. Then n processes
+   of one card over nccl through the command line (the sharded dictionary
+   on the 262,144 reads, as phase wgs_cards (c) runs it), the VCF equal
+   to the one-card pass's, and a kill / resume across n processes over
+   the scaling workload's reads (as phase wgs_cards (d), a checkpoint
+   every 2 global batches). Prints a ``{"cards": ...}`` line.
+
+wgs_cards (``--wgs-cards`` only) -- the headline scale of phase wgs (same
+   generator, seed, 3,000 Mb, 5,000,000 SNPs, 262,144 reads) with a shard
+   a card on cuda:0-3: (a) synthesis and the bucketed build as ``--wgs``
+   does them; (b) one process, the sharded dictionary at D = 4 over
+   cuda:0-3: the reads streamed at batch_reads 32768 with no overflow left
+   and the vote kernel launched, the VCF, oracle spot parity (2,048
+   sampled reads, every site equal); (c) four processes of one card over
+   nccl through the command line (``python -m vargeno_tpu_torch.cli geno
+   ... --multihost HOST:PORT --num-processes 4 --process-id i
+   --dist-backend nccl --mesh 4 --sharded-dict --batch-reads 32768``, each
+   in ``--cli-rank``, which runs the CLI's ``main`` on that argument list
+   and times its stages), the VCF byte-identical to (b)'s; (d) kill /
+   resume over the 2,097,152 endurance reads, four processes over nccl
+   from ``--mh-worker`` specs (the CLI checkpoints every 64 batches and a
+   32,768-read batch would checkpoint only at the end): leg A
+   uninterrupted, leg B checkpointing every 4 global batches (524,288
+   reads) and SIGKILLed, every rank, once a checkpoint at or past
+   1,048,576 reads is on disk, leg C the same cluster again, resumed: its
+   VCF byte-identical to leg A's. Prints each stage's seconds (placement
+   per rank, stream, spot parity, each leg), per card the index bytes and
+   peak device memory, per rank the host peak RSS and vote launches, the
+   host's free disk, processors and MemTotal; a stage whose peak RSS
+   reaches MemTotal fails the phase. Prints a ``{"wgs_cards": ...}``
+   line. Needs the disk and time of ``--wgs`` and four cards.
+
+The last two lines of the default run and of ``--wgs-cards`` are a JSON
+object describing each kernel and the result line ``{"ok": true,
+"device": {...}}``; the other modes end in the result line. The datasets
+and indexes are cached under ``.smoke_cache/`` next to this file.
 """
 
 from __future__ import annotations
@@ -234,6 +294,14 @@ WGS3_MB, WGS3_SNPS, WGS3_DEVICES = 3000, 5_000_000, "cuda:0,cuda:0"
 # free bytes the index, and the inputs and outputs, need (the index may
 # lie on another file system: <cache>/wgs.vgt may link to a directory)
 WGS3_INDEX_DISK, WGS3_IO_DISK = 47e9, 6e9
+# --all-cards: batches a scaling point (32,768 reads a card each), and the
+# checkpoint cadence of its kill / resume legs on the scaling workload
+CARDS_SCALING_BATCHES, CARDS_CHECKPOINT_EVERY = 16, 2
+# --wgs-cards: the headline scale with a shard a card on four cards, and
+# the checkpoint cadence of its kill / resume legs (global batches of
+# 4 x 32,768 reads)
+WGS4_DEVICES, WGS4_BACKEND = "cuda:0,cuda:1,cuda:2,cuda:3", "nccl"
+WGS4_CHECKPOINT_EVERY = 4
 
 
 def log(phase: str, msg: str) -> None:
@@ -857,6 +925,100 @@ def phase_mesh():
            f"on the sharded dictionary at D = 2", resumed, t0)
 
 
+def check_scaling_point(tag: str, p: dict, batches: int, batch_reads: int):
+    """A scaling tool's point: no overflow left, the vote kernel launched
+    (in every process of a multi-process point), and reads in the timed
+    window, at most ``batches`` global batches of ``batch_reads`` a shard.
+    Not a whole number of them: the FASTQ reader ends a batch short at the
+    end of each 256 MiB window of the file. A single-process point's
+    window ran at least ``batches`` host-loop batches (its limit counts
+    the retry batches too, as the JAX runner's loop does)."""
+    launches = p["vote_launches"]
+    launches = launches if isinstance(launches, list) else [launches]
+    ok = 0 < p["reads"] <= batches * batch_reads * p["devices"] and \
+        p.get("window_batches", batches) >= batches
+    if p["overflow"] or min(launches) <= 0 or not ok:
+        raise AssertionError(f"{tag}: overflow {p['overflow']}, vote "
+                             f"launches {launches}, {p['reads']} reads: "
+                             f"{p}")
+
+
+def scaling_line(p: dict) -> str:
+    eff = p.get("efficiency")
+    return (f"{p['mode']} at D = {p['devices']}"
+            + (f" ({p['procs']} processes over {p['backend']}, cards "
+               f"{p['cards']})" if "procs" in p else "")
+            + f": {p['reads']} reads"
+            + (f" ({p['window_batches']} host-loop batches)"
+               if "window_batches" in p else "")
+            + f" in {p['seconds']:.4f} s = "
+            f"{p['reads_per_sec']} reads/s"
+            + (f", efficiency {eff}" if eff is not None else "")
+            + f"; vote launches {p['vote_launches']}, peak device memory "
+            f"{p['peak_bytes']} B")
+
+
+def phase_scaling(card: str) -> dict:
+    """The scaling tools on one card (checks of their paths, not scaling
+    numbers): (a) ``python -m vargeno_tpu_torch.tools.bench_scaling
+    --devices 1``; (b) its ``run_point`` at D = 2 naming cuda:0 twice,
+    both modes, on the tool's synthetic draw; (c) ``python -m
+    vargeno_tpu_torch.tools.bench_scaling_mh --procs 2 --devices-per-proc
+    1`` naming cuda:0 for both processes over gloo (NCCL refuses a card
+    shared by two processes). Every point: no overflow left, the vote
+    kernel launched (in each process), the window's reads the tool's
+    batches. Run beside phases that time nothing."""
+    from vargeno_tpu_torch.testing import make_synthetic
+    from vargeno_tpu_torch.tools import bench_scaling as bs
+
+    t_phase = time.perf_counter()
+    batches, batch = 8, 2048   # the tools' defaults
+    out = {}
+    got = last_json(run_tool("scaling", "bench_scaling", ["--devices", "1"],
+                             dict(os.environ), 600))
+    if [(p["mode"], p["devices"]) for p in got["results"]] != [("dp", 1)]:
+        raise AssertionError(f"scaling: --devices 1 gave {got}")
+    for p in got["results"]:
+        check_scaling_point("scaling/tool", p, batches, batch)
+        log("scaling", f"[{card}] bench_scaling --devices 1: "
+                       + scaling_line(p))
+    out["tool"] = got["results"]
+
+    d = os.path.join(CACHE, "scaling")
+    os.makedirs(d, exist_ok=True)
+    index, _, _, fq = make_synthetic(
+        seed=123, tmpdir=d, sizes=(2_000_000,), n_snps=5_000,
+        n_reads=batch * 2 * (batches + 1))
+    out["cuda0_twice"] = []
+    for mode in bs.MODES:
+        p, runner = bs.run_point(index, fq, mode, [f"{DEVICE}:0"] * 2,
+                                 bs.point_config(batch), batches)
+        del runner
+        bs.release()
+        check_scaling_point(f"scaling/D2/{mode}", p, batches, batch)
+        log("scaling", f"[{card}] run_point naming cuda:0 twice (a check "
+                       f"of the path): " + scaling_line(p))
+        out["cuda0_twice"].append(p)
+    del index
+
+    got = last_json(run_tool(
+        "scaling", "bench_scaling_mh", ["--procs", "2", "--devices-per-proc",
+                                        "1", "--dist-backend", "gloo",
+                                        "--cards", "cuda:0,cuda:0"],
+        dict(os.environ), 1200))
+    if [p["mode"] for p in got["results"]] != list(bs.MODES):
+        raise AssertionError(f"scaling: bench_scaling_mh gave {got}")
+    for p in got["results"]:
+        check_scaling_point(f"scaling/mh/{p['mode']}", p, 6, batch)
+        log("scaling", f"[{card}] bench_scaling_mh, 2 processes naming "
+                       f"cuda:0 over gloo (a check of the protocol): "
+                       + scaling_line(p))
+    out["mh_gloo_2x1"] = got["results"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log("scaling", f"phase scaling {out['seconds']:.1f} s")
+    return out
+
+
 def real_workload():
     """The real phase's workload: the bench tool's, cached here."""
     from vargeno_tpu_torch.tools.bench import Workload
@@ -1446,10 +1608,14 @@ def mh_worker(spec: dict) -> int:
     index once, and for each run in ``spec["runs"]`` builds the
     multi-process runner, drives ``consume_fastq`` (the vote kernel's
     count set to 0 just before, read just after; the processes start it
-    together after a barrier) and ``write_vcf``, and prints one JSON line
-    ``{"mh_run": ...}`` with what this process saw. A run with a
-    ``counts`` path also has process 0 save the merged per-site counts
-    there (``np.savez``: ref, alt)."""
+    together after a barrier; a run's ``checkpoint`` path is saved every
+    ``checkpoint_every`` global batches, 64 by default, and resumed from
+    when it exists) and ``write_vcf``, and prints one JSON line
+    ``{"mh_run": ...}`` with what this process saw: among it each stage's
+    peak RSS (load, setup, geno, vcf: ``rehearse_wgs.stage_rss``) and each
+    of its cards' peak device memory. A run with a ``counts`` path also
+    has process 0 save the merged per-site counts there (``np.savez``:
+    ref, alt)."""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -1458,32 +1624,46 @@ def mh_worker(spec: dict) -> int:
     from vargeno_tpu_torch.dist import multihost
     from vargeno_tpu_torch.index import store
     from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+    from vargeno_tpu_torch.tools.bench_scaling import (peak_bytes,
+                                                       reset_peaks, sync)
+    from vargeno_tpu_torch.tools.endurance_wgs import checkpoint_offset
+    from vargeno_tpu_torch.tools.rehearse_wgs import stage_rss
 
     cluster = multihost.initialize(f"tcp://localhost:{spec['port']}",
                                    spec["world"], spec["rank"],
                                    spec["backend"], timeout=spec["timeout"])
     mesh = multihost.ProcessMesh(cluster, spec["devices"])
-    index = store.load(spec["prefix"])
+    cards = list(dict.fromkeys(mesh.devices))
+    stages: dict = {}
+    t0 = time.perf_counter()
+    with stage_rss(stages, "load"):
+        index = store.load(spec["prefix"])
+    load_s = time.perf_counter() - t0
     for run in spec["runs"]:
         cls = (multihost.MultiHostDictGenoRunner if run["dict"]
                else multihost.MultiHostGenoRunner)
         cfg = GenoConfig(**{**spec["config"], **run.get("cfg", {})})
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(mesh.devices[0])
+        reset_peaks(cards)
+        ck = run.get("checkpoint")
+        resumed_from = (checkpoint_offset(ck) if ck else None) or 0
         t0 = time.perf_counter()
-        runner = cls(index, mesh, cfg, queued_orientation=run["queued"])
-        torch.cuda.synchronize()
+        with stage_rss(stages, "setup"):
+            runner = cls(index, mesh, cfg, queued_orientation=run["queued"])
+            sync(cards)
         setup_s = time.perf_counter() - t0
         pass_s = []
         for k in range(run.get("passes", 1)):
             multihost.barrier(cluster)
             vote_fn.launches = 0
             t0 = time.perf_counter()
-            runner.consume_fastq(spec["fq"],
-                                 checkpoint_path=run.get("checkpoint"),
-                                 limit_batches=run.get("limit"))
-            torch.cuda.synchronize()
+            with stage_rss(stages, "geno"):
+                runner.consume_fastq(
+                    spec["fq"], checkpoint_path=ck,
+                    limit_batches=run.get("limit"),
+                    checkpoint_every=run.get("checkpoint_every", 64))
+                sync(cards)
             pass_s.append(time.perf_counter() - t0)
             if k:
                 continue   # a later pass is timed only (counts add up)
@@ -1502,14 +1682,25 @@ def mh_worker(spec: dict) -> int:
                 rc, ac = runner.host_counts()
                 if cluster.rank == 0:
                     np.savez(run["counts"], ref=rc, alt=ac)
-            runner.write_vcf(spec["vcf_in"], run["out"])
+            t0 = time.perf_counter()
+            with stage_rss(stages, "vcf"):
+                runner.write_vcf(spec["vcf_in"], run["out"])
+            got["vcf_s"] = time.perf_counter() - t0
+        peaks = peak_bytes(cards)
         got.update(pass_s=pass_s, index_bytes=runner.device_bytes(),
-                   peak_bytes=torch.cuda.max_memory_allocated(
-                       mesh.devices[0]))
+                   peak_bytes=peaks[0], card_peak_bytes=peaks,
+                   cards=[str(c) for c in cards], load_s=load_s,
+                   resumed_from=resumed_from, stage_peak_rss=dict(stages))
         print(json.dumps({"mh_run": got}), flush=True)
         del runner
     multihost.shutdown(cluster)
     return 0
+
+
+def worker_command(flag: str, spec: dict) -> list:
+    """This script in a fresh interpreter as one process of a cluster
+    (``--mh-worker`` or ``--cli-rank``)."""
+    return [sys.executable, os.path.abspath(__file__), flag, json.dumps(spec)]
 
 
 def free_port() -> int:
@@ -1529,8 +1720,7 @@ def start_cluster(name: str, backend: str, devices, common):
         spec = dict(common, port=port, world=len(devices), rank=rank,
                     backend=backend, devices=devs)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mh-worker",
-             json.dumps(spec)], stdout=subprocess.PIPE,
+            worker_command("--mh-worker", spec), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     return name, procs
 
@@ -2047,23 +2237,30 @@ def endurance_summary(card: str, end: dict, tag: str = "genome") -> dict:
 
 
 def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
-                          stages: dict, want=None):
-    """Phase genome (c)-(d) and phase wgs (b)-(c): the sharded dictionary
-    of ``index`` placed, streamed, on ``mesh`` (its peak RSS as
-    ``stages["placement"]``), ``fq`` streamed with no overflow left and the
-    vote kernel launched (count set to 0 just before the stream, read just
-    after), counts at every site (equal to ``want``, the hash table's
-    (ref, alt) counts, where given), then oracle spot parity through the
-    same runner: WGS_SPOT sampled reads, 0 mismatches over every site.
-    Returns (its numbers, the first vote launch's records and C)."""
+                          stages: dict, want=None, vcf=None):
+    """Phase genome (c)-(d), phase wgs (b)-(c) and phase wgs_cards (b):
+    the sharded dictionary of ``index`` placed, streamed, on ``mesh`` (its
+    peak RSS as ``stages["placement"]``), ``fq`` streamed with no overflow
+    left and the vote kernel launched (count set to 0 just before the
+    stream, read just after), counts at every site (equal to ``want``, the
+    hash table's (ref, alt) counts, where given), the VCF written where
+    ``vcf`` = (input VCF, output path) is given, then oracle spot parity
+    through the same runner: WGS_SPOT sampled reads, 0 mismatches over
+    every site. Returns (its numbers, among them each card's index bytes
+    and peak device memory, and the first vote launch's records and
+    C)."""
     import numpy as np
     import torch
 
     from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import device_bytes
     from vargeno_tpu_torch.kernels.vote import vote_scan_records
     from vargeno_tpu_torch.tools import rehearse_wgs
+    from vargeno_tpu_torch.tools.bench_scaling import (peak_bytes,
+                                                       reset_peaks, sync)
 
     n_sites = int(index.sites.pos.shape[0])
+    cards = list(dict.fromkeys(mesh.devices))
     kept = []
 
     def keeping_vote(ev_idx, ev_meta, ev_total, C):
@@ -2073,11 +2270,11 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peaks(cards)
     t0 = time.perf_counter()
     with rehearse_wgs.stage_rss(stages, "placement"):
         runner = ShardedDictGenoRunner(index, mesh, cfg, vote=keeping_vote)
-        torch.cuda.synchronize()
+        sync(cards)
     setup_s = time.perf_counter() - t0
     vote_scan_records.launches = 0
     with rehearse_wgs.stage_rss(stages, "geno"):
@@ -2094,11 +2291,16 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
         bad = int(((rc != want[0]) | (ac != want[1])).sum())
         raise AssertionError(f"{tag}: the sharded dictionary's counts "
                              f"differ from the hash table's at {bad} sites")
+    peaks = peak_bytes(cards)
     out = dict(
         shards=len(mesh.devices), setup_s=setup_s,
         placement_peak_rss=stages["placement"], reads=got["reads"],
         geno_s=got["seconds"], reads_s=got["reads_s"],
-        peak_bytes=torch.cuda.max_memory_allocated(),
+        peak_bytes=max(p or 0 for p in peaks), card_peak_bytes=peaks,
+        cards=[str(c) for c in cards],
+        card_index_bytes=[device_bytes(
+            t for s, dev in zip(runner.shards, mesh.devices) if dev == c
+            for t in s.tensors()) for c in cards],
         index_bytes=runner.device_bytes(),
         shard_ref_rows=runner.shards[0].dix.n_ref_rows,
         vote_launches=launches, escalations=runner.n_escalations,
@@ -2113,9 +2315,17 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
              f"{got['reads_s']:.1f} reads/s"
              + (f"; counts equal to the hash table's at all {n_sites} "
                 f"sites" if want is not None else "")
-             + f"; peak device memory {out['peak_bytes']} B; escalations "
+             + f"; peak device memory {out['peak_bytes']} B (per card "
+             f"{out['cards']}: {peaks} B, index "
+             f"{out['card_index_bytes']} B); escalations "
              f"{runner.n_escalations} (route_factor {cfg.route_factor} -> "
              f"{runner._cfg_run.route_factor}), vote launches {launches}")
+    if vcf is not None:
+        t0 = time.perf_counter()
+        with rehearse_wgs.stage_rss(stages, "vcf"):
+            runner.write_vcf(*vcf)
+        out["vcf_s"] = time.perf_counter() - t0
+        log(tag, f"VCF {vcf[1]} written in {out['vcf_s']:.2f} s")
 
     vote_scan_records.launches = 0
     with rehearse_wgs.stage_rss(stages, "spot"):
@@ -2289,6 +2499,50 @@ def wgs_dir() -> str:
     return os.path.join(CACHE, f"wgs{WGS3_MB}mb_{WGS3_SNPS}snp_{WGS_READS}r")
 
 
+def wgs_setup(tag: str, card: str, devices: str):
+    """The headline scale's directory, index prefix and reads, and the
+    host (processors, MemTotal, free disk) logged; before a build, the
+    free disk for the index (``<dir>/wgs.vgt`` may link to another file
+    system) and for the inputs and outputs is checked."""
+    import shutil
+
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.tools import rehearse_wgs
+
+    d = wgs_dir()
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "wgs")
+    host = rehearse_wgs.host_info(d)
+    log(tag, f"[{card}] {WGS3_MB} Mb, {WGS3_SNPS} SNPs, {WGS_READS} reads, "
+             f"batch_reads {BATCH}, devices {devices}; host: "
+             f"{host['nproc']} processors, MemTotal {host['mem_total']} B, "
+             f"free disk {host['disk_free']} B")
+    vgt = os.path.realpath(prefix + ".vgt")
+    if not store.exists(prefix):
+        need = {}   # file system -> (a path on it, bytes needed)
+        for path, n in ((d, WGS3_IO_DISK),
+                        (vgt if os.path.isdir(vgt) else d, WGS3_INDEX_DISK)):
+            p0, n0 = need.get(os.stat(path).st_dev, (path, 0))
+            need[os.stat(path).st_dev] = (p0, n0 + n)
+        for path, n in need.values():
+            free = shutil.disk_usage(path).free
+            if free < n:
+                raise RuntimeError(f"{tag}: {free} B free under {path}, the "
+                                   f"run needs {n:.0f}")
+    log(tag, f"inputs and outputs in {d}, the index in {vgt}")
+    return d, prefix, os.path.join(d, "reads.fq"), host
+
+
+def start_wgs_index():
+    """The headline scale's synthesis (the reads and the endurance reads
+    too) and index build: the rehearsal tool's command line in a session
+    of its own (host only)."""
+    return start_session(tool_command(
+        "rehearse_wgs", "--phase", "index", "--mb", WGS3_MB, "--snps",
+        WGS3_SNPS, "--reads", WGS_READS, "--extra-reads", WGS_EXTRA_READS,
+        "--cache", wgs_dir(), "--progress-every", 0))
+
+
 def phase_wgs(card: str) -> dict:
     """``--wgs``: the whole genome on one card (see the module's
     docstring): synthesis and the bucketed build in the rehearsal tool's
@@ -2302,38 +2556,12 @@ def phase_wgs(card: str) -> dict:
     from vargeno_tpu_torch.tools import rehearse_wgs
 
     t_phase = time.perf_counter()
-    d = wgs_dir()
-    os.makedirs(d, exist_ok=True)
-    prefix = os.path.join(d, "wgs")
-    fq = os.path.join(d, "reads.fq")
-    host = rehearse_wgs.host_info(d)
-    log("wgs", f"[{card}] {WGS3_MB} Mb, {WGS3_SNPS} SNPs, {WGS_READS} reads, "
-               f"batch_reads {BATCH}, devices {WGS3_DEVICES}; host: "
-               f"{host['nproc']} processors, MemTotal {host['mem_total']} "
-               f"B, free disk {host['disk_free']} B")
-    vgt = os.path.realpath(prefix + ".vgt")
-    if not store.exists(prefix):
-        import shutil
-
-        need = {}   # file system -> (a path on it, bytes needed)
-        for path, n in ((d, WGS3_IO_DISK),
-                        (vgt if os.path.isdir(vgt) else d, WGS3_INDEX_DISK)):
-            p0, n0 = need.get(os.stat(path).st_dev, (path, 0))
-            need[os.stat(path).st_dev] = (p0, n0 + n)
-        for path, n in need.values():
-            free = shutil.disk_usage(path).free
-            if free < n:
-                raise RuntimeError(f"wgs: {free} B free under {path}, the "
-                                   f"run needs {n:.0f}")
-    log("wgs", f"inputs and outputs in {d}, the index in {vgt}")
+    d, prefix, fq, host = wgs_setup("wgs", card, WGS3_DEVICES)
 
     # (a) synthesis and the index build
     t0 = time.perf_counter()
-    prep = finish_tool(start_session(tool_command(
-        "rehearse_wgs", "--phase", "index", "--mb", WGS3_MB, "--snps",
-        WGS3_SNPS, "--reads", WGS_READS, "--extra-reads", WGS_EXTRA_READS,
-        "--cache", d, "--progress-every", 0)), 3000, "wgs",
-        ("index",)).get("index", {})
+    prep = finish_tool(start_wgs_index(), 3000, "wgs",
+                       ("index",)).get("index", {})
     prep_s = time.perf_counter() - t0
     stages = dict(prep.get("stage_peak_rss", {}))
 
@@ -2383,6 +2611,337 @@ def phase_wgs(card: str) -> dict:
     return out
 
 
+def cli_rank(spec: dict) -> int:
+    """``--cli-rank SPEC``: one process of a cluster run through the port's
+    command line, ``vargeno_tpu_torch.cli.main(spec["argv"])`` (what
+    ``python -m vargeno_tpu_torch.cli`` runs), with its runner's
+    construction (the placement), stream and VCF timed and their peak RSS
+    sampled (``rehearse_wgs.stage_rss``), the vote kernel's launches
+    counted and its cards' peak device memory read; prints one JSON line
+    ``{"cli_rank": ...}`` under ``spec["tag"]``. Exits with the CLI's
+    code."""
+    sys.path.insert(0, ROOT)
+    from vargeno_tpu_torch import cli
+    from vargeno_tpu_torch.dist import multihost
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+    from vargeno_tpu_torch.tools.bench_scaling import peak_bytes
+    from vargeno_tpu_torch.tools.rehearse_wgs import stage_rss
+
+    stages, secs, seen = {}, {}, {}
+
+    def timed(cls, name, stage):
+        fn = getattr(cls, name)
+
+        def run(self, *a, **k):
+            t0 = time.perf_counter()
+            with stage_rss(stages, stage):
+                got = fn(self, *a, **k)
+            secs[stage] = time.perf_counter() - t0
+            seen["runner"] = self
+            return got
+        setattr(cls, name, run)
+
+    for cls in (multihost.MultiHostDictGenoRunner,
+                multihost.MultiHostGenoRunner):
+        timed(cls, "__init__", "placement")
+        timed(cls, "consume_fastq", "geno")
+        timed(cls, "write_vcf", "vcf")
+    vote_fn.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(spec["argv"])
+    runner = seen["runner"]
+    cards = list(dict.fromkeys(runner.mesh.devices))
+    print(json.dumps({"cli_rank": dict(
+        tag=spec["tag"], rank=runner.cluster.rank, rc=rc,
+        seconds=time.perf_counter() - t0, stage_s=secs,
+        stage_peak_rss=stages, vote_launches=vote_fn.launches,
+        cards=[str(c) for c in cards], reads=runner.n_reads,
+        escalations=runner.n_escalations,
+        overflow={k: v for k, v in runner.stats_totals.items()
+                  if "overflow" in k and v},
+        index_bytes=runner.device_bytes(),
+        card_peak_bytes=peak_bytes(cards))}), flush=True)
+    return rc
+
+
+def run_cluster_leg(name: str, cmds, key: str, timeout: float, kill=None):
+    """One cluster (a process a command, together), each process's output
+    in a file of its own; ``kill = (checkpoint, kill_at, total)``
+    SIGKILLs every process once the checkpoint's offset reaches kill_at
+    (``endurance_wgs.kill_past``). Every process is killed once
+    ``timeout`` seconds have passed. Returns (exit codes, each process's
+    ``{key: ...}`` lines, the offset at the kill, seconds); a timeout
+    fails the phase."""
+    import tempfile
+    import threading
+
+    from vargeno_tpu_torch.tools.endurance_wgs import kill_past
+
+    logs = [tempfile.TemporaryFile("w+") for _ in cmds]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                              text=True) for c, f in zip(cmds, logs)]
+    expired = threading.Event()
+
+    def expire():
+        expired.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+    timer = threading.Timer(timeout, expire)
+    timer.start()
+    try:
+        killed_at = kill_past(procs, kill)
+    finally:
+        timer.cancel()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    lines, tails = [], []
+    for f in logs:
+        f.seek(0)
+        text = f.read()
+        f.close()
+        tails.append(text[-3000:])
+        lines.append([json.loads(x)[key] for x in text.splitlines()
+                      if x.startswith('{"%s"' % key)])
+    rcs = [p.returncode for p in procs]
+    if expired.is_set():
+        raise RuntimeError(f"{name}: the cluster did not finish within "
+                           f"{timeout} s:\n" + "\n".join(tails))
+    if kill is None and any(rcs):
+        raise RuntimeError(f"{name}: processes exited {rcs}:\n"
+                           + "\n".join(tails))
+    return rcs, lines, killed_at, seconds
+
+
+def phase_wgs_cards(card: str, setup, prep_proc, stages: dict) -> dict:
+    """``--wgs-cards`` (four cards): the headline scale with a shard a
+    card (see the module's docstring). ``setup``: ``wgs_setup``'s
+    result; ``prep_proc``: the running synthesis and build
+    (``start_wgs_index``); ``stages``: each stage's peak RSS, filled
+    here. (b) one process, D = 4 over cuda:0-3: the
+    stream, no overflow, the vote launched, the VCF, oracle spot parity;
+    (c) four processes of one card over nccl through the command line,
+    their VCF byte-identical to (b)'s; (d) kill / resume over the
+    endurance reads, four processes over nccl from ``--mh-worker`` specs
+    checkpointing every WGS4_CHECKPOINT_EVERY global batches: leg B
+    SIGKILLed (every rank) at a checkpoint past half the stream, leg C's
+    VCF byte-identical to leg A's. Each part that fails is recorded and
+    the rest still runs; the phase then fails."""
+    import torch
+
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.tools import rehearse_wgs
+
+    n = torch.cuda.device_count()
+    devices = WGS4_DEVICES.split(",")
+    d, prefix, fq, host = setup
+    vcf_in = os.path.join(d, "snps.vcf")
+    out = dict(card=card, mb=WGS3_MB, snps=WGS3_SNPS, reads=WGS_READS,
+               batch_reads=BATCH, devices=WGS4_DEVICES, host=host)
+    failures = []
+
+    # (a) synthesis and the index build (started by the caller)
+    t0 = time.perf_counter()
+    prep = finish_tool(prep_proc, 3000, "wgs_cards",
+                       ("index",)).get("index", {})
+    out.update(prep=prep, prep_wait_s=time.perf_counter() - t0)
+    stages.update({f"(a) {k}": v
+                   for k, v in prep.get("stage_peak_rss", {}).items()})
+
+    # (b) one process, a shard a card
+    vcf_b = os.path.join(d, "wgs_cards_b.vcf")
+    try:
+        t0 = time.perf_counter()
+        b_stages: dict = {}
+        with rehearse_wgs.stage_rss(b_stages, "load"):
+            index = store.load(prefix)
+        load_s = time.perf_counter() - t0
+        n_sites = int(index.sites.pos.shape[0])
+        if n_sites != WGS3_SNPS or n < len(devices):
+            raise AssertionError(f"wgs_cards: {n_sites} sites, {n} cards")
+        sharded, _ = sharded_genome_checks(
+            "wgs_cards", card, index, fq, make_mesh(devices=devices),
+            rehearse_wgs.geno_config(BATCH), b_stages, vcf=(vcf_in, vcf_b))
+        del index
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["b"] = dict(load_s=load_s, **sharded)
+        stages.update({f"(b) {k}": v for k, v in b_stages.items()})
+    except Exception as e:   # recorded; the phase fails at its end
+        failures.append(f"(b): {e!r}")
+        log("wgs_cards", f"FAILED (b): {e!r}")
+
+    # (c) four processes of one card over nccl, the command line
+    try:
+        out["c"] = cli_cluster("wgs_cards (c)", card, prefix, fq, vcf_in,
+                               os.path.join(d, "wgs_cards_c.vcf"), vcf_b, n,
+                               stages)
+    except Exception as e:
+        failures.append(f"(c): {e!r}")
+        log("wgs_cards", f"FAILED (c): {e!r}")
+
+    # (d) kill / resume, four processes over nccl
+    try:
+        out["d"] = cluster_endurance(
+            "wgs_cards (d)", card, prefix,
+            os.path.join(d, f"reads_{WGS_EXTRA_READS}.fq"), vcf_in, d,
+            WGS_EXTRA_READS, WGS4_CHECKPOINT_EVERY, dict(
+                batch_reads=BATCH, max_read_len=128, max_kmers_per_read=4,
+                events_per_read=24),   # rehearse_wgs.geno_config's
+            n, stages)
+    except Exception as e:
+        failures.append(f"(d): {e!r}")
+        log("wgs_cards", f"FAILED (d): {e!r}")
+
+    over = {k: v for k, v in stages.items() if v >= host["mem_total"]}
+    if over:
+        failures.append(f"stages at the host's MemTotal "
+                        f"({host['mem_total']} B): {over}")
+    out["stage_peak_rss"] = stages
+    log("wgs_cards", f"[{card}] peak RSS by stage (B): {json.dumps(stages)}")
+    if failures:
+        raise AssertionError("wgs_cards: " + "; ".join(failures))
+    return out
+
+
+def cli_cluster(tag: str, card: str, prefix: str, fq: str, vcf_in: str,
+                vcf_out: str, want_vcf: str, n: int, stages: dict) -> dict:
+    """n processes of one card each through the command line (``geno
+    ... --multihost --sharded-dict --mesh n``, each in ``--cli-rank``, the
+    cards the CLI's default): every rank's stages, vote launches and
+    memory, no overflow, and the VCF byte-identical to ``want_vcf``."""
+    port = free_port()
+    cmds = [worker_command("--cli-rank", dict(tag=tag, argv=[
+        "geno", prefix, fq, vcf_in, vcf_out, "--device", DEVICE,
+        "--multihost", f"localhost:{port}", "--num-processes", str(n),
+        "--process-id", str(i), "--dist-backend", WGS4_BACKEND, "--mesh",
+        str(n), "--sharded-dict", "--batch-reads", str(BATCH)]))
+        for i in range(n)]
+    _, lines, _, wall_s = run_cluster_leg(tag, cmds, "cli_rank", 1500)
+    ranks = [x[0] for x in lines]
+    with open(vcf_out, "rb") as f, open(want_vcf, "rb") as g:
+        same = f.read() == g.read()
+
+    def per_rank(stage):
+        return [round(r["stage_s"][stage], 2) for r in ranks]
+    for r in ranks:
+        stages.update({f"{tag} rank {r['rank']} {k}": v
+                       for k, v in r["stage_peak_rss"].items()})
+    log(tag, f"[{card}] {n} processes x 1 card over {WGS4_BACKEND} (the "
+             f"CLI): VCF "
+             + ("byte-identical to " if same else "DIFFERS from ")
+             + f"{os.path.basename(want_vcf)}; per rank: placement "
+             f"{per_rank('placement')} s, stream {per_rank('geno')} s, VCF "
+             f"{per_rank('vcf')} s, vote launches "
+             f"{[r['vote_launches'] for r in ranks]}, cards "
+             f"{[r['cards'] for r in ranks]}, index bytes "
+             f"{[r['index_bytes'] for r in ranks]}, peak device memory "
+             f"{[r['card_peak_bytes'] for r in ranks]} B, peak RSS "
+             f"{[r['stage_peak_rss'] for r in ranks]} B; {ranks[0]['reads']}"
+             f" reads, escalations {ranks[0]['escalations']}; cluster wall "
+             f"{wall_s:.1f} s")
+    if not same or len(ranks) != n or any(
+            r["overflow"] or r["vote_launches"] <= 0 or r["rc"]
+            for r in ranks):
+        raise AssertionError(f"{tag}: VCF equal {same}, ranks {ranks}")
+    return dict(wall_s=wall_s, vcf_equal=same, ranks=ranks)
+
+
+def cluster_endurance(tag: str, card: str, prefix: str, fq: str,
+                      vcf_in: str, d: str, total: int, every: int,
+                      config: dict, n: int, stages: dict) -> dict:
+    """Kill / resume across processes over the ``total`` reads of ``fq``:
+    legs A (uninterrupted), B (checkpointing every ``every`` global
+    batches, every rank SIGKILLed once a checkpoint at or past half the
+    stream is on disk) and C (the same cluster again, resumed), n
+    processes of one card over nccl from ``--mh-worker`` specs (the CLI
+    checkpoints every 64 batches only). C must resume from the kill's
+    checkpoint and write leg A's VCF byte for byte, with no overflow and
+    the vote kernel launched in every process of A and C."""
+    from vargeno_tpu_torch.tools.endurance_wgs import checkpoint_offset
+
+    name = tag.split()[0]
+    ck = os.path.join(d, f"{name}_ck")
+    for ext in (".npz", ".json"):
+        if os.path.exists(ck + ext):
+            os.remove(ck + ext)
+    kill_at = total // 2
+
+    def leg(k, out_vcf, checkpoint=None, kill=None):
+        port = free_port()
+        run = dict(tag=k, dict=True, queued=True, out=out_vcf)
+        if checkpoint:
+            run.update(checkpoint=checkpoint, checkpoint_every=every)
+        cmds = [worker_command("--mh-worker", dict(
+            prefix=prefix, fq=fq, vcf_in=vcf_in, config=config, timeout=300,
+            runs=[run], port=port, world=n, rank=r, backend=WGS4_BACKEND,
+            devices=[f"{DEVICE}:{r}"])) for r in range(n)]
+        rcs, lines, killed_at, wall_s = run_cluster_leg(
+            f"{tag} leg {k}", cmds, "mh_run", 1200, kill)
+        ranks = [x[0] for x in lines if x]
+        for r in ranks:
+            stages.update({f"{tag} leg {k} rank {r['rank']} {s}": v
+                           for s, v in r["stage_peak_rss"].items()})
+        got = dict(wall_s=wall_s, rcs=rcs, killed_at=killed_at,
+                   ranks=[{f: r[f] for f in (
+                       "rank", "reads", "geno_s", "setup_s", "load_s",
+                       "vcf_s", "resumed_from", "vote_launches",
+                       "escalations", "batches", "retry_batches",
+                       "overflow", "index_bytes", "card_peak_bytes",
+                       "cards", "stage_peak_rss")} for r in ranks])
+        if ranks:
+            log(tag, f"[{card}] leg {k}: wall {wall_s:.1f} s; per rank: "
+                     f"load {[round(r['load_s'], 2) for r in ranks]} s, "
+                     f"placement {[round(r['setup_s'], 2) for r in ranks]}"
+                     f" s, stream {[round(r['geno_s'], 2) for r in ranks]} "
+                     f"s ({ranks[0]['reads']} reads, resumed from "
+                     f"{ranks[0]['resumed_from']}), vote launches "
+                     f"{[r['vote_launches'] for r in ranks]}, peak device "
+                     f"memory {[r['card_peak_bytes'] for r in ranks]} B, "
+                     f"index {[r['index_bytes'] for r in ranks]} B")
+        return got
+
+    full = os.path.join(d, f"{name}_full.vcf")
+    resumed = os.path.join(d, f"{name}_resumed.vcf")
+    legs = {"A": leg("A", full)}
+    legs["B"] = leg("B", resumed, ck, kill=(ck, kill_at, total))
+    offset = checkpoint_offset(ck)
+    log(tag, f"[{card}] leg B: exit codes {legs['B']['rcs']}, SIGKILL at "
+             f"checkpoint offset {legs['B']['killed_at']} (kill point "
+             f"{kill_at})")
+    if legs["B"]["killed_at"] is None or any(
+            rc != -signal.SIGKILL for rc in legs["B"]["rcs"]) \
+            or offset is None or not kill_at <= offset < total:
+        raise AssertionError(f"{tag}: leg B was not killed past the kill "
+                             f"point: {legs['B']}, checkpoint {offset}")
+    legs["C"] = leg("C", resumed, ck)
+    with open(full, "rb") as f, open(resumed, "rb") as g:
+        a, c = f.read(), g.read()
+    ok = (a == c and all(r["resumed_from"] == offset
+                         for r in legs["C"]["ranks"]))
+    for k in "AC":
+        if len(legs[k]["ranks"]) != n or any(
+                r["overflow"] or r["vote_launches"] <= 0
+                for r in legs[k]["ranks"]):
+            ok = False
+    log(tag, f"[{card}] kill / resume over {total} reads, {n} processes "
+             f"over {WGS4_BACKEND}: leg C resumed from {offset} and its VCF "
+             f"is " + ("byte-identical to leg A's" if a == c else
+                       "DIFFERENT from leg A's")
+             + f" ({len(a)} B); legs A / B / C {legs['A']['wall_s']:.1f} / "
+             f"{legs['B']['wall_s']:.1f} / {legs['C']['wall_s']:.1f} s")
+    if not ok:
+        raise AssertionError(f"{tag}: resume failed: {legs}")
+    return dict(reads=total, kill_at=kill_at, killed_at_offset=offset,
+                checkpoint_every=every, vcf_bytes=len(a), legs=legs)
+
+
 def phase_cards(card: str) -> dict:
     """``--all-cards``: the 48 Mb workload, untuned, on every visible card
     (n >= 2), two passes each (the second warm, timed only), every first
@@ -2393,7 +2952,35 @@ def phase_cards(card: str) -> dict:
     against n processes of one card each (``dist/multihost.py``): the
     replicated index over nccl (no data collective: only the launch rate
     differs), the sharded dictionary over nccl and over gloo (the same
-    processes; only the all-to-all transport differs)."""
+    processes; only the all-to-all transport differs). Then the scaling
+    tools (``cards_scaling``), the sharded dictionary on n processes of
+    one card through the command line (``cli_cluster``, its VCF equal to
+    the one-card pass's) and a kill / resume across n processes over the
+    scaling workload's reads (``cluster_endurance``, a checkpoint every
+    CARDS_CHECKPOINT_EVERY global batches); a failure among these three
+    is recorded, the others still run, and the phase then fails."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--all-cards needs 2 or more cards, {n} visible")
+
+    # the scaling workload's dataset and index, made beside the passes
+    # below (host only; those passes are too short to rank)
+    scaling_prep = start_session([
+        sys.executable, "-c", "import sys, chip_smoke; "
+        f"sys.exit(chip_smoke.prepare_scaling({n}))"])
+    try:
+        return cards_passes(card, n, scaling_prep)
+    finally:
+        if scaling_prep.poll() is None:
+            os.killpg(scaling_prep.pid, signal.SIGKILL)
+            scaling_prep.wait()
+
+
+def cards_passes(card: str, n: int, scaling_prep) -> dict:
+    """Phase cards on n cards (``phase_cards``); ``scaling_prep`` makes the
+    scaling workload meanwhile."""
     import torch
 
     from vargeno_tpu_torch.config import GenoConfig
@@ -2403,10 +2990,6 @@ def phase_cards(card: str) -> dict:
     from vargeno_tpu_torch.index import store
     from vargeno_tpu_torch.io.fastq import autosize_shapes
     from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
-
-    n = torch.cuda.device_count()
-    if n < 2:
-        raise RuntimeError(f"--all-cards needs 2 or more cards, {n} visible")
     from vargeno_tpu_torch.tools import bench
 
     wl = real_workload()
@@ -2534,18 +3117,245 @@ def phase_cards(card: str) -> dict:
                          f"{out[tag]['index_bytes']} B, setup "
                          f"{[round(t, 2) for t in out[tag]['setup_s']]} s; "
                          f"cluster wall {wall_s:.1f} s")
+
+    # the scaling tools, then n processes through the CLI and a kill /
+    # resume across n processes: each recorded, the phase failing after
+    failures, stages = [], {}
+    swl = scaling_workload(n)
+    for key, fn, args in (
+            ("scaling", cards_scaling, (card, n, scaling_prep)),
+            ("cli", cli_cluster, (
+                "cards (cli)", card, prefix, fq, vcf,
+                os.path.join(d, "cards_cli.vcf"), ref_vcf, n, stages)),
+            ("kill_resume", cluster_endurance, (
+                "cards (kill/resume)", card, swl.prefix, swl.fq, swl.vcf,
+                swl.cache, swl.reads, CARDS_CHECKPOINT_EVERY, cfg, n,
+                stages))):
+        try:
+            out[key] = fn(*args)
+        except Exception as e:   # recorded; the phase fails at its end
+            failures.append(f"{key}: {e!r}")
+            log("cards", f"FAILED {key}: {e!r}")
+    out["stage_peak_rss"] = stages
+    if failures:
+        raise AssertionError("cards: " + "; ".join(failures))
     return out
+
+
+def scaling_workload(n: int):
+    """``--all-cards``' scaling workload: bench.py's genome and SNPs with
+    enough reads for CARDS_SCALING_BATCHES + 1 global batches of BATCH
+    reads a card at the largest D of n cards, in a cache of its own."""
+    from vargeno_tpu_torch.tools import bench_scaling as bs
+    from vargeno_tpu_torch.tools.bench import Workload
+
+    reads = BATCH * max(bs.sizes_upto(n)) * (CARDS_SCALING_BATCHES + 1)
+    return Workload(
+        cache=os.path.join(CACHE, f"scaling{GENOME_MB}mb_{N_SNPS}snp_"
+                                  f"{reads}r"),
+        mb=GENOME_MB, snps=N_SNPS, reads=reads, batch=BATCH)
+
+
+def prepare_scaling(n: int) -> int:
+    """The scaling workload's dataset and index (the bench tool's
+    functions), in a process of its own; prints ``{"scaling_prep":
+    ...}``: the seconds of both."""
+    from vargeno_tpu_torch.tools import bench
+
+    wl = scaling_workload(n)
+    t0 = time.perf_counter()
+    bench.build_dataset(wl)
+    dataset_s = time.perf_counter() - t0
+    bench.build_index(wl)
+    print(json.dumps({"scaling_prep": dict(
+        reads=wl.reads, dataset_s=dataset_s,
+        index_s=time.perf_counter() - t0 - dataset_s)}), flush=True)
+    return 0
+
+
+def cards_scaling(card: str, n: int, prep) -> dict:
+    """``--all-cards``: the scaling tools on bench.py's genome and SNPs
+    (48 Mb, 500,000 SNPs, the bench's seed) with enough reads for
+    CARDS_SCALING_BATCHES + 1 global batches of 32,768 reads a card at the
+    largest D, in a cache of its own: ``bench_scaling``'s ``run_point`` at
+    D = 1, 2, 4, ... up to n cards (routed from 2), then
+    ``bench_scaling_mh``'s clusters over nccl, n processes x 1 card and
+    n / 2 x 2, both modes, CARDS_SCALING_BATCHES batches a point. Each
+    point: no overflow, the vote kernel launched in every process, the
+    window's reads; a single-process point's efficiency as the JAX tool
+    takes it (against the mode's first point: the routed mode starts at
+    D = 2), a multi-process point's against one card (the dp point at D =
+    1)."""
+    import argparse
+
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.tools import bench_scaling as bs
+    from vargeno_tpu_torch.tools import bench_scaling_mh as bsm
+
+    batches = CARDS_SCALING_BATCHES
+    sizes = bs.sizes_upto(n)
+    wl = scaling_workload(n)
+    reads = wl.reads
+    t0 = time.perf_counter()
+    made = finish_tool(prep, 1200, "cards", ("scaling_prep",))
+    prep_s = time.perf_counter() - t0
+    log("cards", f"scaling dataset ({reads} reads) and index: "
+                 f"{made.get('scaling_prep')}; the rest of their wait "
+                 f"{prep_s:.1f} s")
+    index = store.load(wl.prefix)
+    cfg = bs.point_config(BATCH)
+    points: dict = {m: [] for m in bs.MODES}
+    for mode in bs.MODES:
+        for d in sizes:
+            if mode == "routed" and d == 1:
+                continue   # routing needs >= 2 shards
+            p, runner = bs.run_point(index, wl.fq, mode,
+                                     bs.mesh_devices(d, False), cfg, batches)
+            del runner
+            bs.release()
+            points[mode].append(p)
+            bs.with_efficiency(points[mode])
+            check_scaling_point(f"cards/scaling/{mode}/{d}", p, batches,
+                                BATCH)
+            log("cards", f"[{card}] bench_scaling.run_point, 1 process: "
+                         + scaling_line(p))
+    del index
+    gc.collect()
+    one_card = points["dp"][0]["reads_per_sec"]
+    mh = []
+    layouts = [(n, 1)] + ([(n // 2, 2)] if n >= 4 and n % 2 == 0 else [])
+    for P, K in layouts:
+        args = argparse.Namespace(procs=P, devices_per_proc=K,
+                                  batches=batches, batch_reads=BATCH,
+                                  cpu=False, dist_backend="nccl", cards=None)
+        cards = bsm.cluster_cards(args)
+        for mode in bs.MODES:
+            t0 = time.perf_counter()
+            p = bsm.run_cluster(args, mode, cards, "nccl", wl.prefix, wl.fq)
+            p["wall_s"] = time.perf_counter() - t0
+            p["efficiency"] = round(p["reads_per_sec"] / (
+                one_card * p["devices"]), 3)
+            check_scaling_point(f"cards/scaling_mh/{mode}/{P}x{K}", p,
+                                batches, BATCH)
+            log("cards", f"[{card}] bench_scaling_mh: " + scaling_line(p)
+                + f" (efficiency against one card: the dp point at D = 1, "
+                  f"{one_card} reads/s); every rank's seconds "
+                  f"{[round(t, 4) for t in p['rank_seconds']]}; cluster "
+                  f"wall {p['wall_s']:.1f} s")
+            mh.append(p)
+    return dict(reads=reads, batches=batches, batch_reads=BATCH,
+                prep=made.get("scaling_prep"), prep_wait_s=prep_s,
+                points=points["dp"] + points["routed"], multiprocess=mh)
+
+
+def kernels_line(vote_t, vote_err, vote_launches, gather_t, gather_err,
+                 gather_launches, **vote_extra) -> dict:
+    """The kernels line: each kernel against its plain version at its main
+    shape, as the kernel phases timed it, with its launches on this run's
+    main path (and the vote's elsewhere, ``vote_extra``)."""
+    return {"kernels": [
+        {"name": "vote_scan", "route": "cuda",
+         "source": "vargeno_tpu_torch/csrc/vote.cu",
+         "replaces": "vargeno_tpu/engine/pallas_vote.py:26",
+         "launches": vote_launches, "max_abs_err": vote_err,
+         "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
+         **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
+         "ms_of": "the records entry (zero one word, launch)",
+         **vote_extra},
+        {"name": "gather_rows_sum", "route": "cuda",
+         "source": "vargeno_tpu_torch/csrc/gather.cu",
+         "replaces": "tools/bench_gather.py:245",
+         "launches": gather_launches, "max_abs_err": gather_err,
+         "shape": "(N, R, W) = " + str(GATHER_MAIN),
+         **gather_t[GATHER_MAIN],
+         "ms_of": "the wrapper (zero one word, launch the kernel the "
+                  "library picks: see kernel)"}]}
+
+
+def four_cards(card: str, t_start: float, with_cards: bool) -> int:
+    """``--wgs-cards`` (and ``--all-cards --wgs-cards``): the headline
+    scale's synthesis and build start at once in a session of their own;
+    beside them run what needs no quiet host: the kernel phases, the
+    gather bench, phase scaling (the tools' one-card checks) and, with
+    ``--all-cards``, phase cards (its reads/s then taken beside the
+    build); then phase wgs_cards. A failed phase is recorded and the rest
+    still runs; the run then exits 1."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < len(WGS4_DEVICES.split(",")):
+        print(f"error: --wgs-cards needs {len(WGS4_DEVICES.split(','))} "
+              f"visible cards, {n} visible", file=sys.stderr)
+        return 1
+    setup = wgs_setup("wgs_cards", card, WGS4_DEVICES)
+    prep = start_wgs_index()
+    got: dict = {}
+    failures = []
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            got[name] = fn(*args)
+        except Exception as e:   # recorded; the run exits 1 at its end
+            failures.append(f"{name}: {e!r}")
+            log("done", f"phase {name} FAILED: {e!r}")
+        log("done", f"phase {name} {time.perf_counter() - t0:.1f} s")
+
+    stages: dict = {}
+    try:
+        timed("kernel (vote)", phase_kernel_vote)
+        timed("kernel (gather)", phase_kernel_gather)
+        timed("bench", phase_bench, card)
+        timed("scaling", phase_scaling, card)
+        if with_cards:
+            timed("cards", phase_cards, card)
+        timed("wgs_cards", phase_wgs_cards, card, setup, prep, stages)
+    finally:   # on a failure, stop the build if it still runs
+        if prep.poll() is None:
+            os.killpg(prep.pid, signal.SIGKILL)
+            prep.wait()
+    log("done", f"total {time.perf_counter() - t_start:.1f} s")
+    if failures:
+        print("error: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    w = got["wgs_cards"]
+    if with_cards:
+        print(json.dumps({"cards": {"card": card, **got["cards"]}}),
+              flush=True)
+    print(json.dumps({"scaling": got["scaling"]}), flush=True)
+    print(json.dumps({"wgs_cards": w}), flush=True)
+    vote_t, vote_err = got["kernel (vote)"]
+    gather_t, gather_err = got["kernel (gather)"]
+    print(json.dumps(kernels_line(
+        vote_t, vote_err, w["b"]["vote_launches"], gather_t, gather_err,
+        got["bench"][1],
+        launches_of="wgs_cards (b): the 262,144-read pass at D = 4 in one "
+                    "process",
+        launches_per_process={
+            "(b) spot parity": w["b"]["spot"]["vote_launches"],
+            "(c) 4 processes (CLI)": [r["vote_launches"]
+                                      for r in w["c"]["ranks"]],
+            **{f"(d) leg {k}": [r["vote_launches"]
+                                for r in w["d"]["legs"][k]["ranks"]]
+               for k in "AC"}})), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def main() -> int:
     argv = sys.argv[1:]
     parent = None
     if len(argv) == 2 and argv[0] in ("--parent", "--step-ops-of",
-                                      "--routed-step-ops-of", "--mh-worker"):
+                                      "--routed-step-ops-of", "--mh-worker",
+                                      "--cli-rank"):
         parent = argv[1]
-    elif argv and argv not in (["--all-cards"], ["--wgs"]):
-        print("usage: chip_smoke.py [--parent DIR | --all-cards | --wgs]",
-              file=sys.stderr)
+    elif argv and sorted(argv) not in (
+            ["--all-cards"], ["--wgs"], ["--wgs-cards"],
+            ["--all-cards", "--wgs-cards"]):
+        print("usage: chip_smoke.py [--parent DIR | --all-cards | --wgs | "
+              "--wgs-cards | --all-cards --wgs-cards]", file=sys.stderr)
         return 2
     try:
         import numpy as np
@@ -2558,6 +3368,8 @@ def main() -> int:
         return 1
     if argv and argv[0] == "--mh-worker":
         return mh_worker(json.loads(argv[1]))
+    if argv and argv[0] == "--cli-rank":
+        return cli_rank(json.loads(argv[1]))
     if argv and argv[0] in ("--step-ops-of", "--routed-step-ops-of"):
         return step_ops_of(parent, routed=argv[0] == "--routed-step-ops-of")
     if parent:
@@ -2591,6 +3403,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"ptxas {name}: " + line.strip())
+
+    if "--wgs-cards" in argv:
+        return four_cards(card, t_start, "--all-cards" in argv)
 
     if argv == ["--all-cards"]:
         cards = phase_cards(card)
@@ -2632,6 +3447,7 @@ def main() -> int:
         timed("golden", phase_golden)
         timed("mesh", phase_mesh)
         fuzz = timed("fuzz", phase_fuzz, card)
+        scaling = timed("scaling", phase_scaling, card)
         real_prep = timed("real's dataset and index, the rest of their "
                           "wait", finish_tool, real_bg, 600, "real",
                           ("real_prep",))["real_prep"]
@@ -2659,6 +3475,7 @@ def main() -> int:
         **routed, "multihost": mh}}), flush=True)
     print(json.dumps({"geno_bench": geno_bench}), flush=True)
     print(json.dumps({"fuzz": fuzz}), flush=True)
+    print(json.dumps({"scaling": scaling}), flush=True)
     print(json.dumps({"genome": genome}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
@@ -2677,6 +3494,14 @@ def main() -> int:
                 for t, v in runs.items()}},
          "fuzz_launches": {k: v["vote_launches"]
                            for k, v in fuzz["runners"].items()},
+         "scaling_launches_per_process": {
+             f"{src} {p['mode']} D = {p['devices']}": p["vote_launches"]
+             for src, pts in (("bench_scaling --devices 1", scaling["tool"]),
+                              ("run_point on cuda:0 twice",
+                               scaling["cuda0_twice"]),
+                              ("bench_scaling_mh 2 x 1 gloo",
+                               scaling["mh_gloo_2x1"]))
+             for p in pts},
          "genome_launches": {
              "hash table": genome["hash_table"]["vote_launches"],
              "sharded dictionary, D = 1":

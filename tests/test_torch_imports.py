@@ -43,6 +43,8 @@ MODULES = [
     "vargeno_tpu_torch.tools.profile_step",
     "vargeno_tpu_torch.tools.trace_step",
     "vargeno_tpu_torch.tools.summarize_trace",
+    "vargeno_tpu_torch.tools.bench_scaling",
+    "vargeno_tpu_torch.tools.bench_scaling_mh",
 ]
 
 

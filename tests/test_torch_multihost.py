@@ -7,6 +7,7 @@ packages; the process-spanning all-to-all against the single-process
 mesh's; a failed peer ending its cluster; the striped reader against the
 JAX package's. Every cluster runs under its own time limit."""
 
+import argparse
 import os
 import shutil
 import socket
@@ -260,3 +261,106 @@ def test_cli_multihost_refusals(prefix, tmp_path, capsys):
         assert cli.main(args + extra) == 1, extra
         assert msg in capsys.readouterr().err, extra
     assert not os.path.exists(tmp_path / "o.vcf")
+
+
+KILL_WORKER = """
+import sys, time
+from vargeno_tpu_torch.config import GenoConfig
+from vargeno_tpu_torch.dist import multihost
+from vargeno_tpu_torch.index import store
+port, rank, prefix, out, ck, pace = sys.argv[1:7]
+cluster = multihost.initialize(f"tcp://localhost:{port}", 2, int(rank),
+                               "gloo", timeout=60)
+mesh = multihost.ProcessMesh(cluster, ["cpu", "cpu"])
+runner = multihost.MultiHostGenoRunner(store.load(prefix), mesh,
+                                       GenoConfig(batch_reads=256,
+                                                  max_read_len=128,
+                                                  max_kmers_per_read=4))
+run_batch = runner.run_batch
+def paced(*a, **k):   # a leg to be killed leaves the killer time
+    time.sleep(float(pace))
+    return run_batch(*a, **k)
+runner.run_batch = paced
+runner.consume_fastq(FQ, checkpoint_path=ck or None, checkpoint_every=2)
+runner.write_vcf(VCF, out)
+multihost.shutdown(cluster)
+"""
+
+
+def test_cluster_killed_after_a_checkpoint_resumes_byte_identical(
+        prefix, tmp_path):
+    """Kill / resume across processes: a 2-process x 2-shard cluster
+    checkpointing every 2 global batches is SIGKILLed, every rank, once a
+    checkpoint past half the reads is on disk; the same cluster run again
+    resumes from it. Its VCF is byte-identical to an uninterrupted
+    cluster's and to golden."""
+    from vargeno_tpu_torch.tools.endurance_wgs import (checkpoint_offset,
+                                                        kill_past)
+
+    code = KILL_WORKER.replace("FQ", repr(FQ)).replace("VCF", repr(VCF))
+    ck = str(tmp_path / "ck")
+
+    def leg(out, check, pace=0.0, kill=None):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(port), str(r), prefix,
+             str(tmp_path / out), check, str(pace)], cwd=REPO,
+            env=dict(os.environ, OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            killed_at = kill_past(procs, kill)
+            outs = [p.communicate(timeout=CLUSTER_TIMEOUT)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return [p.returncode for p in procs], outs, killed_at
+
+    rcs, outs, _ = leg("full.vcf", "")
+    assert rcs == [0, 0], "\n".join(o[-3000:] for o in outs)
+    full = open(tmp_path / "full.vcf").read()
+    assert full == GOLDEN
+    half, total = 20443 // 2, 20443
+    rcs, outs, killed_at = leg("resumed.vcf", ck, pace=0.05,
+                               kill=(ck, half, total))
+    assert rcs == [-9, -9] and killed_at is not None, outs
+    assert not os.path.exists(tmp_path / "resumed.vcf")
+    assert half <= checkpoint_offset(ck) < total
+    assert checkpoint_offset(ck) % 1024 == 0   # whole global batches
+    rcs, outs, _ = leg("resumed.vcf", ck)
+    assert rcs == [0, 0], "\n".join(o[-3000:] for o in outs)
+    assert open(tmp_path / "resumed.vcf").read() == full
+    assert checkpoint_offset(ck) == total
+
+
+@pytest.mark.parametrize("P,local_D,n,want", [
+    (4, 1, 4, [["cuda:0"], ["cuda:1"], ["cuda:2"], ["cuda:3"]]),
+    (2, 2, 4, [["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]]),
+    (2, 4, 4, [["cuda:0", "cuda:1", "cuda:2", "cuda:3"]] * 2),
+    (8, 1, 4, [[f"cuda:{p % 4}"] for p in range(8)]),
+    (2, 1, 1, [["cuda:0"], ["cuda:0"]]),
+])
+def test_cli_default_cards_of_each_process(monkeypatch, P, local_D, n,
+                                           want):
+    """Without --local-devices, the processes of one host share its n
+    cards out in process-id order (a process alone on its host, or each
+    host's first, starts at cuda:0); nccl is the default backend."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    for pid in range(P):
+        args = argparse.Namespace(
+            multihost="localhost:1", num_processes=P, process_id=pid,
+            device="cuda", local_devices=None, mesh=P * local_D,
+            dist_backend=None)
+        assert cli._process_layout(args) == (want[pid], "nccl"), pid
+
+
+def test_cli_default_cards_refused_when_short(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    args = argparse.Namespace(
+        multihost="localhost:1", num_processes=2, process_id=1,
+        device="cuda", local_devices=None, mesh=4, dist_backend=None)
+    with pytest.raises(ValueError, match="takes cards 2 .. 3 but 3 CUDA"):
+        cli._process_layout(args)

@@ -28,7 +28,10 @@ subcommands, ``oracle-geno`` and ``kmerc`` are host code.
 command once for every process id 0 .. P-1. ``--mesh D`` is then the global
 shard count (default: P times the local devices named, or P) and must
 divide by P; each process drives D / P shards on its ``--local-devices``
-(default cuda:0 .. D/P - 1, or the host with ``--device cpu``). The data
+(default: process p takes D/P consecutive cards from cuda:(p * D/P mod n)
+of the n visible, so the processes of one host share its cards out and a
+process that is alone on its host starts at cuda:0; or the host with
+``--device cpu``). The data
 collectives go over ``--dist-backend`` (default nccl with cuda, gloo with
 cpu; NCCL takes one process a card, so a card named by two processes needs
 gloo). Every collective waits at most 300 s for a peer. Only process 0
@@ -120,13 +123,15 @@ def _process_layout(args):
     if named is None:
         if kind == "cpu":
             named = ["cpu"] * local_D
-        elif local_D > torch.cuda.device_count():
-            raise ValueError(f"{local_D} shards a process but "
-                             f"{torch.cuda.device_count()} CUDA device(s) "
-                             f"are visible (name --local-devices to repeat "
-                             f"one)")
         else:
-            named = [f"cuda:{i}" for i in range(local_D)]
+            n = torch.cuda.device_count()
+            first = (args.process_id * local_D) % max(n, 1)
+            if first + local_D > n:
+                raise ValueError(f"process {args.process_id} takes cards "
+                                 f"{first} .. {first + local_D - 1} but {n} "
+                                 f"CUDA device(s) are visible (name "
+                                 f"--local-devices to repeat one)")
+            named = [f"cuda:{first + i}" for i in range(local_D)]
     elif len(named) != local_D:
         raise ValueError(f"{len(named)} --local-devices named for {local_D} "
                          f"shards a process")
@@ -192,7 +197,8 @@ def _parser():
                         "with --device cuda, gloo with --device cpu)")
     m.add_argument("--local-devices", default=None, metavar="DEV[,DEV...]",
                    help="this process's shard devices, one a shard "
-                        "(default cuda:0 .. D/P - 1; a device repeats only "
+                        "(default D/P consecutive cards from cuda:(I * D/P "
+                        "mod the visible count); a device repeats only "
                         "where named)")
     _add_engine_flags(p)
 

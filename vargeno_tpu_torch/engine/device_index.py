@@ -236,8 +236,10 @@ class _DerivedCache:
             return
         try:
             os.makedirs(self.dir, exist_ok=True)
+            # temporary names of this process's own: the processes of a
+            # cluster may save the same tables at once
             for name, arr in arrays.items():
-                tmp = os.path.join(self.dir, name + ".npy.tmp")
+                tmp = os.path.join(self.dir, f"{name}.npy.{os.getpid()}.tmp")
                 with open(tmp, "wb") as f:
                     np.save(f, np.ascontiguousarray(arr))
                 os.replace(tmp, os.path.join(self.dir, name + ".npy"))
@@ -246,7 +248,7 @@ class _DerivedCache:
                 m["files_" + name] = True
             if meta:
                 m.update(meta)
-            tmp = os.path.join(self.dir, "meta.json.tmp")
+            tmp = os.path.join(self.dir, f"meta.json.{os.getpid()}.tmp")
             with open(tmp, "w") as f:
                 json.dump(m, f)
             os.replace(tmp, os.path.join(self.dir, "meta.json"))

@@ -68,6 +68,26 @@ def checkpoint_offset(ck: str):
         return None
 
 
+def kill_past(procs, kill=None, poll_s=0.01):
+    """Wait for every process of one leg (one process, or each process of
+    a cluster) to end. ``kill = (ck, kill_at, total)`` SIGKILLs all of
+    them once the checkpoint ``ck``'s offset is at least ``kill_at`` and
+    below ``total``. Returns the offset seen at the kill (None: no
+    kill)."""
+    killed_at = None
+    while any(p.poll() is None for p in procs):
+        if kill is not None and killed_at is None:
+            ck, kill_at, total = kill
+            off = checkpoint_offset(ck)
+            if off is not None and kill_at <= off < total:
+                for p in procs:
+                    if p.poll() is None:
+                        os.kill(p.pid, signal.SIGKILL)
+                killed_at = off
+        time.sleep(poll_s)
+    return killed_at
+
+
 def run_leg(cmd, tag, kill=None, poll_s=0.01) -> dict:
     """Run one leg, relaying its output. ``kill = (ck, kill_at, total)``
     SIGKILLs it once the checkpoint's offset is at least ``kill_at`` and
@@ -92,16 +112,10 @@ def run_leg(cmd, tag, kill=None, poll_s=0.01) -> dict:
     reader.start()
     killed_at = None
     try:
-        while p.poll() is None:
-            if kill is not None and killed_at is None:
-                ck, kill_at, total = kill
-                off = checkpoint_offset(ck)
-                if off is not None and kill_at <= off < total:
-                    os.kill(p.pid, signal.SIGKILL)
-                    killed_at = off
-                    print(f"[endurance] SIGKILL at checkpoint offset {off} "
-                          f"reads", flush=True)
-            time.sleep(poll_s)
+        killed_at = kill_past([p], kill, poll_s)
+        if killed_at is not None:
+            print(f"[endurance] SIGKILL at checkpoint offset {killed_at} "
+                  f"reads", flush=True)
     finally:
         if p.poll() is None:
             p.kill()

@@ -156,14 +156,38 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    no overflow left, the vote kernel launched in each process, the timed
    window's reads the tool's batches. Prints the phase's seconds.
 
+14. repeats -- exactness on a repeat-rich genome: bench.py's widths (48
+   Mb, 500,000 SNPs, 262,144 reads of 101 bp at 15 % errors) on a genome
+   from ``testing.synth_repeat_genome`` with 30 % of its bases in families
+   of 2-10 copies (1 % substitutions a copy) and one 16-copy family, at
+   batch_reads 32768 and the real phase's default capacities, where the
+   ambiguous-exact capacity (``amb_hits_per_read`` 0.25) must spill.
+   Its dataset, index (the reference's Bloom geometry) and the sequential
+   oracle (fork-parallel; over the first 65,536 reads, then the rest) are
+   made in a process of their own beside phases 3-6, 11 and 13. GenoRunner
+   queued and inline dual, the same queued with ``auto_retry_max=0`` (it
+   must leave ``amb_overflow`` in its totals and the runner's warning),
+   the sharded dictionary at D = 1 and D = 2 (cuda:0 twice), and 2
+   processes x 1 shard on cuda:0 over gloo (``--mh-worker``; replicated
+   and sharded dictionary) on the first 65,536 reads. Each run: the
+   ambiguous exact hits a read of its first batch, its first attempt's
+   ``amb_overflow``, escalations, the final ``amb_hits_per_read``,
+   overflow left, oracle mismatches (``tools/fuzz_diff.bad_sites``),
+   reads/s with the escalation redos, vote launches (count set to 0 just
+   before, read just after). The queued run's first attempt must spill;
+   every run but the one without retry must end with no overflow and 0
+   mismatches; the four single-card VCFs must be byte-identical; the vote
+   kernel must launch in every run and process.
+
 Phase order: 1, 2, then 3-6, 11 and 13 beside genome (a) and (e) and
-beside the making of phase 7's dataset and index (a process of its own,
-host only), then 7-10 and genome (b)-(d); phases 7-10 never run beside
-those processes, so their reads/s stays comparable with earlier runs. The
-log gives each phase's seconds. A JSON line ``{"mesh": ...}`` carries
-phase 9's and phase 10's numbers, ``{"geno_bench": ...}`` phase 8's,
-``{"fuzz": ...}`` phase 11's, ``{"scaling": ...}`` phase 13's,
-``{"genome": ...}`` phase 12's.
+beside the making of phase 7's and phase 14's datasets and indexes (a
+process each, host only), then 7-10, genome (b)-(d) and 14; phases 7-10
+never run beside those processes, so their reads/s stays comparable with
+earlier runs. The log gives each phase's seconds. A JSON line
+``{"mesh": ...}`` carries phase 9's and phase 10's numbers,
+``{"geno_bench": ...}`` phase 8's, ``{"fuzz": ...}`` phase 11's,
+``{"scaling": ...}`` phase 13's, ``{"genome": ...}`` phase 12's,
+``{"repeats": ...}`` phase 14's.
 
 wgs (``--wgs`` only) -- the JAX package's headline scale
    (docs/WORKFLOWS.md:62-110; hg19 + dbSNP-common): a 3,000 Mb genome,
@@ -294,6 +318,11 @@ WGS3_MB, WGS3_SNPS, WGS3_DEVICES = 3000, 5_000_000, "cuda:0,cuda:0"
 # free bytes the index, and the inputs and outputs, need (the index may
 # lie on another file system: <cache>/wgs.vgt may link to a directory)
 WGS3_INDEX_DISK, WGS3_IO_DISK = 47e9, 6e9
+# phase repeats: bench.py's widths on a genome with REPEATS_DUP_SHARE of
+# its bases in families of 2-10 copies (testing.synth_repeat_genome), where
+# the default ambiguous-exact capacity must spill at BATCH; the 2-process
+# run takes the first REPEATS_MH_READS reads
+REPEATS_DUP_SHARE, REPEATS_SEED, REPEATS_MH_READS = 0.3, 20261017, 65_536
 # --all-cards: batches a scaling point (32,768 reads a card each), and the
 # checkpoint cadence of its kill / resume legs on the scaling workload
 CARDS_SCALING_BATCHES, CARDS_CHECKPOINT_EVERY = 16, 2
@@ -726,6 +755,36 @@ def check_no_overflow(runner, tag):
            if "overflow" in k and v}
     if bad:
         raise AssertionError(f"{tag}: overflow counters left: {bad}")
+
+
+def record_first_attempt(runner) -> dict:
+    """The stats row of ``runner``'s first attempt (its first batch, before
+    any escalation), filled in once the run has made it: the runner's
+    ``_attempt`` is wrapped, the rows it returns are left as they are."""
+    first: dict = {}
+    attempt = runner._attempt
+
+    def recorded(*args):
+        out = attempt(*args)
+        if not first:
+            first.update(out[2])
+        return out
+    runner._attempt = recorded
+    return first
+
+
+def amb_summary(runner, first: dict) -> dict:
+    """What a run says of the ambiguous-exact capacity: the ambiguous
+    exact hits a read of its first batch (forward pass; over every shard of
+    every process), the spill of its first attempt, and the
+    ``amb_hits_per_read`` it ended on."""
+    reads = runner.config.batch_reads * getattr(runner, "D", 1)
+    hits = first.get("amb_hits", first.get("fwd_amb_hits", 0))
+    return dict(amb_hits_a_read=int(hits) / reads,
+                first_amb_overflow=int(sum(
+                    v for k, v in first.items()
+                    if k.endswith("amb_overflow"))),
+                amb_hits_per_read=runner._cfg_run.amb_hits_per_read)
 
 
 def phase_golden():
@@ -1612,8 +1671,9 @@ def mh_worker(spec: dict) -> int:
     ``checkpoint_every`` global batches, 64 by default, and resumed from
     when it exists) and ``write_vcf``, and prints one JSON line
     ``{"mh_run": ...}`` with what this process saw: among it each stage's
-    peak RSS (load, setup, geno, vcf: ``rehearse_wgs.stage_rss``) and each
-    of its cards' peak device memory. A run with a ``counts`` path also
+    peak RSS (load, setup, geno, vcf: ``rehearse_wgs.stage_rss``), each
+    of its cards' peak device memory and the ambiguous-exact numbers of
+    ``amb_summary``. A run with a ``counts`` path also
     has process 0 save the merged per-site counts there (``np.savez``:
     ref, alt)."""
     sys.path.insert(0, ROOT)
@@ -1653,6 +1713,7 @@ def mh_worker(spec: dict) -> int:
             runner = cls(index, mesh, cfg, queued_orientation=run["queued"])
             sync(cards)
         setup_s = time.perf_counter() - t0
+        first = record_first_attempt(runner)
         pass_s = []
         for k in range(run.get("passes", 1)):
             multihost.barrier(cluster)
@@ -1677,7 +1738,8 @@ def mh_worker(spec: dict) -> int:
                 retry_batches=runner.n_retry_batches,
                 retry_reads=runner.n_retry_reads,
                 overflow={key: v for key, v in runner.stats_totals.items()
-                          if "overflow" in key and v})
+                          if "overflow" in key and v},
+                **amb_summary(runner, first))
             if run.get("counts"):   # a collective: every process calls it
                 rc, ac = runner.host_counts()
                 if cluster.rank == 0:
@@ -2493,6 +2555,295 @@ def phase_genome(card: str, bg: dict) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log("genome", f"phase genome {out['seconds']:.1f} s")
     return out
+
+
+def repeats_paths():
+    """Phase repeats' cache directory and index prefix."""
+    d = os.path.join(CACHE, f"repeats{GENOME_MB}mb_{N_SNPS}snp_{N_READS}r_"
+                            f"dup{REPEATS_DUP_SHARE}")
+    return d, os.path.join(d, "repeats")
+
+
+def prepare_repeats() -> int:
+    """Phase repeats' dataset, index and oracle counts, in a process of its
+    own (``start_repeats_prep``) beside the phases that time no reads/s:
+    bench.py's widths (48 Mb, 500,000 SNPs, 262,144 reads of 101 bp, 15 %
+    single-base errors) on a genome from ``testing.synth_repeat_genome``
+    (``REPEATS_DUP_SHARE`` of its bases in families of 2-10 copies with 1 %
+    substitutions, and one 16-copy family), the index at the reference's
+    Bloom geometry, then the sequential oracle fork-parallel over the first
+    ``REPEATS_MH_READS`` reads (``head.fq``, the 2-process run's input) and
+    over the rest (``tail.fq``): the counts after each (saturating sums, so
+    the second are the whole file's) go to ``oracle.npz``. Prints one JSON
+    line ``{"repeats_prep": ...}``: the seconds of each step, null where
+    the cache already held it."""
+    import numpy as np
+
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.oracle import OracleEngine
+    from vargeno_tpu_torch.testing import synth_repeat_genome, write_inputs
+    from vargeno_tpu_torch.tools.fuzz_diff import site_counts
+
+    d, prefix = repeats_paths()
+    os.makedirs(d, exist_ok=True)
+    fa, vcf = os.path.join(d, "genome.fa"), os.path.join(d, "snps.vcf")
+    fq = os.path.join(d, "reads.fq")
+    got = dict(dataset_s=None, build_s=None, oracle_s=None)
+    ready = os.path.join(d, "ready")
+    if not os.path.exists(ready):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(REPEATS_SEED)
+        genome = synth_repeat_genome(rng, int(GENOME_MB * 1_000_000),
+                                     REPEATS_DUP_SHARE)
+        write_inputs(d, rng, genome, n_snps=N_SNPS, n_reads=N_READS,
+                     read_len=101, err_frac=0.15)
+        with open(fq) as f:
+            lines = f.readlines()
+        cut = 4 * REPEATS_MH_READS
+        for name, part in (("head.fq", lines[:cut]), ("tail.fq",
+                                                      lines[cut:])):
+            with open(os.path.join(d, name), "w") as f:
+                f.writelines(part)
+        open(ready, "w").close()
+        got["dataset_s"] = time.perf_counter() - t0
+        log("repeats", f"dataset written in {got['dataset_s']:.2f} s")
+    got["build_s"] = build_or_load_index(fa, vcf, prefix, "repeats")
+    orc = os.path.join(d, "oracle.npz")
+    if not os.path.exists(orc):
+        t0 = time.perf_counter()
+        index = store.load(prefix)
+        oracle = OracleEngine(index)
+        oracle.run_fastq_parallel(os.path.join(d, "head.fq"))
+        head = site_counts(oracle, index)
+        oracle.run_fastq_parallel(os.path.join(d, "tail.fq"))
+        full = site_counts(oracle, index)
+        got["oracle_s"] = time.perf_counter() - t0
+        np.savez(orc, head_ref=head[0], head_alt=head[1], ref=full[0],
+                 alt=full[1], seconds=got["oracle_s"])
+        log("repeats", f"oracle over {N_READS} reads (fork-parallel) "
+                       f"{got['oracle_s']:.2f} s")
+    print(json.dumps({"repeats_prep": got}), flush=True)
+    return 0
+
+
+def start_repeats_prep():
+    return start_session([sys.executable, "-c", "import sys, chip_smoke; "
+                          "sys.exit(chip_smoke.prepare_repeats())"])
+
+
+def phase_repeats(card: str, prep: dict) -> dict:
+    """Exactness on a repeat-rich genome (``prepare_repeats`` made the
+    dataset, index and oracle counts beside the earlier phases; ``prep``:
+    their seconds). bench.py's widths at batch_reads 32768 and the real
+    phase's default capacities, where the ambiguous-exact capacity
+    (``amb_hits_per_read`` 0.25: 8,192 hits and 32,768 aux events a batch)
+    must spill. Runs, each with the vote kernel's count set to 0 just
+    before and read just after: GenoRunner queued and inline dual (one
+    device index), the same queued with ``auto_retry_max=0`` (it must end
+    with ``amb_overflow`` in its totals and the runner's warning), the
+    sharded dictionary at D = 1 and D = 2 (cuda:0 twice: a check of
+    routing and lockstep), and 2 processes x 1 shard on cuda:0 over gloo
+    (``--mh-worker``; replicated and sharded dictionary) on the first
+    ``REPEATS_MH_READS`` reads. Every run but the one without retry is held
+    by ``tools/fuzz_diff``'s rule (``bad_sites``) to the oracle, with no
+    overflow left; the single-card runs' VCFs must be byte-identical; the
+    queued run's first attempt must have spilled. Each run prints the
+    ambiguous exact hits a read of its first batch, its first attempt's
+    ``amb_overflow``, escalations, the final ``amb_hits_per_read``,
+    overflow left, mismatches, reads/s (its escalation redos included)
+    and vote launches. All runs go through before a failure is raised."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.engine.device_index import build_device_index
+    from vargeno_tpu_torch.engine.geno import GenoRunner
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+    from vargeno_tpu_torch.tools import fuzz_diff
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    d, prefix = repeats_paths()
+    vcf = os.path.join(d, "snps.vcf")
+    fq, head_fq = os.path.join(d, "reads.fq"), os.path.join(d, "head.fq")
+    L, K = autosize_shapes(fq)
+    cfg = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
+                     ht_target_load=HT_LOAD)
+    index = store.load(prefix)
+    with np.load(os.path.join(d, "oracle.npz")) as z:
+        orc = {k: z[k] for k in z.files}
+    case = dict(seed=REPEATS_SEED,
+                synth=dict(sizes=(int(GENOME_MB * 1_000_000),), n_snps=N_SNPS,
+                           n_reads=N_READS, err_frac=0.15),
+                config=dict(batch_reads=BATCH,
+                            events_per_read=cfg.events_per_read,
+                            agree_cap=cfg.agree_cap), queued=True)
+    full = fuzz_diff.Prepared(case, index, vcf, fq, orc["ref"], orc["alt"],
+                              float(orc["seconds"]))
+    head = fuzz_diff.Prepared(
+        dict(case, synth=dict(case["synth"], n_reads=REPEATS_MH_READS)),
+        index, vcf, head_fq, orc["head_ref"], orc["head_alt"],
+        float(orc["seconds"]))
+    runs: dict = {}
+    failures = []
+    vcfs = {}
+
+    def drive(name, runner, judge=True):
+        first = record_first_attempt(runner)
+        vote_fn.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            runner.consume_fastq(fq)
+            torch.cuda.synchronize()
+        geno_s = time.perf_counter() - t0
+        bad = fuzz_diff.bad_sites(full, *runner.host_counts())
+        got = dict(reads=runner.n_reads, geno_s=geno_s,
+                   reads_s_with_redos=runner.n_reads / geno_s,
+                   escalations=runner.n_escalations,
+                   vote_launches=vote_fn.launches, mismatches=len(bad),
+                   overflow_left={k: v for k, v in runner.stats_totals.items()
+                                  if "overflow" in k and v},
+                   warned=[str(w.message) for w in warned
+                           if "overflow" in str(w.message)],
+                   **amb_summary(runner, first))
+        runs[name] = got
+        log("repeats", f"[{card}] {name}: {runner.n_reads} reads, ambiguous "
+                       f"exact hits a read (first batch) "
+                       f"{got['amb_hits_a_read']:.4f}, first attempt's "
+                       f"amb_overflow {got['first_amb_overflow']}, "
+                       f"escalations {got['escalations']}, final "
+                       f"amb_hits_per_read {got['amb_hits_per_read']}, "
+                       f"overflow left {got['overflow_left'] or 0}, "
+                       f"mismatches {len(bad)}, "
+                       f"{got['reads_s_with_redos']:.1f} reads/s (escalation "
+                       f"redos included), vote launches "
+                       f"{got['vote_launches']}")
+        for line in bad[:10]:
+            log("repeats", line)
+        if got["vote_launches"] <= 0:
+            failures.append(f"{name}: the vote kernel was never launched")
+        if judge and (bad or got["overflow_left"]):
+            failures.append(f"{name}: {len(bad)} mismatches, overflow left "
+                            f"{got['overflow_left']}")
+        return got
+
+    def write(name, runner):
+        out = os.path.join(d, f"out_{len(vcfs)}.vcf")
+        runner.write_vcf(vcf, out)
+        with open(out, "rb") as f:
+            vcfs[name] = f.read()
+
+    t0 = time.perf_counter()
+    dix = build_device_index(index, DEVICE, HT_LOAD)
+    torch.cuda.synchronize()
+    dix_s = time.perf_counter() - t0
+    for name, queued in (("GenoRunner, queued", True),
+                         ("GenoRunner, inline dual", False)):
+        runner = GenoRunner(index, cfg, device=DEVICE, dix=dix,
+                            queued_orientation=queued)
+        drive(name, runner)
+        write(name, runner)
+    if runs["GenoRunner, queued"]["first_amb_overflow"] <= 0:
+        failures.append("GenoRunner, queued: the first attempt did not "
+                        "spill the ambiguous-exact capacity")
+    name = "GenoRunner, queued, auto_retry_max=0"
+    got = drive(name, GenoRunner(
+        index, dataclasses.replace(cfg, auto_retry_max=0), device=DEVICE,
+        dix=dix), judge=False)
+    if not (got["overflow_left"].get("amb_overflow", 0) > 0
+            and any("amb_overflow" in w for w in got["warned"])):
+        failures.append(f"{name}: the spill was not reported "
+                        f"({got['overflow_left']}, {got['warned']})")
+    del dix, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    for D in (1, 2):
+        name = f"sharded dictionary, D = {D}"
+        t0 = time.perf_counter()
+        runner = ShardedDictGenoRunner(
+            index, make_mesh(devices=[DEVICE] * D), cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        drive(name, runner)["setup_s"] = setup_s
+        write(name, runner)
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    names = list(vcfs)
+    for name in names[1:]:
+        if vcfs[name] != vcfs[names[0]]:
+            failures.append(f"{name}: its VCF differs from "
+                            f"{names[0]}'s")
+
+    # 2 processes x 1 shard on cuda:0 over gloo, on the head of the reads
+    runs_mh = [dict(tag=tag, dict=is_dict, queued=True,
+                    out=os.path.join(d, f"mh_{i}.vcf"),
+                    counts=os.path.join(d, f"mh_{i}.npz"))
+               for i, (tag, is_dict) in enumerate(
+                   (("replicated", False), ("sharded dictionary", True)))]
+    spec = dict(prefix=prefix, fq=head_fq, vcf_in=vcf,
+                config=dict(batch_reads=BATCH, max_read_len=L,
+                            max_kmers_per_read=K, ht_target_load=HT_LOAD),
+                timeout=300, runs=runs_mh)
+    got_mh = finish_cluster(start_cluster(
+        "repeats, 2 processes on cuda:0 over gloo", "gloo",
+        [["cuda:0"]] * 2, spec), 600)
+    for run in runs_mh:
+        got = got_mh.get(run["tag"], [])
+        name = f"2 processes x 1 shard, {run['tag']}"
+        if len(got) != 2:
+            failures.append(f"{name}: {len(got)} of 2 processes reported")
+            continue
+        with np.load(run["counts"]) as z:
+            bad = fuzz_diff.bad_sites(head, z["ref"], z["alt"])
+        launches = [g["vote_launches"] for g in got]
+        g0 = got[0]
+        runs[name] = dict(
+            reads=g0["reads"], geno_s=max(g["geno_s"] for g in got),
+            reads_s_with_redos=g0["reads"] / max(g["geno_s"] for g in got),
+            escalations=g0["escalations"], vote_launches=launches,
+            mismatches=len(bad),
+            overflow_left=[g["overflow"] for g in got],
+            amb_hits_a_read=g0["amb_hits_a_read"],
+            first_amb_overflow=g0["first_amb_overflow"],
+            amb_hits_per_read=[g["amb_hits_per_read"] for g in got])
+        log("repeats", f"[{card}] {name}: {g0['reads']} reads, ambiguous "
+                       f"exact hits a read (first batch) "
+                       f"{g0['amb_hits_a_read']:.4f}, first attempt's "
+                       f"amb_overflow {g0['first_amb_overflow']}, "
+                       f"escalations {g0['escalations']}, final "
+                       f"amb_hits_per_read a process "
+                       f"{runs[name]['amb_hits_per_read']}, overflow left "
+                       f"{runs[name]['overflow_left']}, mismatches "
+                       f"{len(bad)}, {runs[name]['reads_s_with_redos']:.1f} "
+                       f"reads/s (escalation redos included), vote "
+                       f"launches per process {launches}")
+        for line in bad[:10]:
+            log("repeats", line)
+        if bad or any(g["overflow"] for g in got) or min(launches) <= 0:
+            failures.append(f"{name}: {len(bad)} mismatches, overflow left "
+                            f"{runs[name]['overflow_left']}, vote launches "
+                            f"{launches}")
+        if len(set(map(str, runs[name]["amb_hits_per_read"]))) != 1:
+            failures.append(f"{name}: the processes ended on different "
+                            f"capacities")
+    phase_s = time.perf_counter() - t_phase
+    log("repeats", f"phase repeats {phase_s:.1f} s (device index "
+                   f"{dix_s:.1f} s); its preparation beside the earlier "
+                   f"phases: {json.dumps(prep)}")
+    if failures:
+        raise AssertionError("repeats: " + "; ".join(failures))
+    return dict(card=card, dup_share=REPEATS_DUP_SHARE, seed=REPEATS_SEED,
+                reads=N_READS, mh_reads=REPEATS_MH_READS, batch=BATCH,
+                runs=runs, prep=prep, seconds=phase_s)
 
 
 def wgs_dir() -> str:
@@ -3439,6 +3790,7 @@ def main() -> int:
         os.remove(go)
     bg = start_genome_background(go)
     real_bg = start_real_prep()   # the real phase's dataset and index too
+    repeats_bg = start_repeats_prep()   # and phase repeats' with its oracle
     try:
         vote_t, vote_err = timed("kernel (vote)", phase_kernel_vote)
         gather_t, gather_err = timed("kernel (gather)", phase_kernel_gather)
@@ -3451,11 +3803,15 @@ def main() -> int:
         real_prep = timed("real's dataset and index, the rest of their "
                           "wait", finish_tool, real_bg, 600, "real",
                           ("real_prep",))["real_prep"]
+        repeats_prep = timed("repeats' dataset, index and oracle, the "
+                             "rest of their wait", finish_tool, repeats_bg,
+                             600, "repeats",
+                             ("repeats_prep",))["repeats_prep"]
         genome_bg = timed("genome (a) and (e), the rest of their wait",
                           finish_tool, bg, 900, "genome",
                           ("index", "endurance"))
     finally:   # on a failure, stop what still runs
-        for p in (bg, real_bg):
+        for p in (bg, real_bg, repeats_bg):
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
@@ -3464,6 +3820,7 @@ def main() -> int:
     routed = timed("routed", phase_routed, card, real)
     mh = timed("multihost", phase_multihost, card, routed)
     genome = timed("genome", phase_genome, card, genome_bg)
+    repeats = timed("repeats", phase_repeats, card, repeats_prep)
 
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"mesh": {
@@ -3477,6 +3834,7 @@ def main() -> int:
     print(json.dumps({"fuzz": fuzz}), flush=True)
     print(json.dumps({"scaling": scaling}), flush=True)
     print(json.dumps({"genome": genome}), flush=True)
+    print(json.dumps({"repeats": repeats}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
     print(json.dumps({"kernels": [
@@ -3511,6 +3869,8 @@ def main() -> int:
                 for k, v in genome["endurance"]["legs"].items()
                 if v["vote_launches"] is not None}},
          "genome_batch_raw_launch_ms": genome["vote_on_step"]["raw_ms"],
+         "repeats_launches": {k: v["vote_launches"]
+                              for k, v in repeats["runs"].items()},
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
          **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
          "ms_before": before["eb_entry_ms"][main_shape] if before else None,

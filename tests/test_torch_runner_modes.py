@@ -139,6 +139,10 @@ def test_tuned_config_matches_jax(name, big):
     got = tuned_config(GenoConfig(**kw), dix, _TELEMETRY[name], 2.0)
     want = j_tuned_config(JConfig(**kw), dix, _TELEMETRY[name], 2.0)
     for f in dataclasses.fields(GenoConfig):
+        if not hasattr(want, f.name):   # the port's own capacity: untuned
+            assert f.name == "amb_hits_per_read"
+            assert getattr(got, f.name) == getattr(GenoConfig(**kw), f.name)
+            continue
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     if name in ("nothing_shrinks", "empty"):
         assert got == GenoConfig(**kw)

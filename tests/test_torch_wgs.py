@@ -172,10 +172,12 @@ def test_checkpoint_stop_then_resume_is_byte_identical(wgs):
 
 
 # a stand-in leg: A writes the VCF; B writes checkpoints at 256, 512 and
-# 768 reads, then waits to be killed (or, when told to, ends at 256); C
+# 768 reads (the offset in the npz, as the port's checkpoint holds it, and
+# in the JSON), then waits to be killed (or, when told to, ends at 256); C
 # resumes from the checkpoint and writes the same VCF
 FAKE_LEG = textwrap.dedent("""
     import json, os, sys, time
+    import numpy as np
     cache, mode, extra = sys.argv[1], sys.argv[2], sys.argv[3:]
     out = os.path.join(cache, extra[extra.index("--out") + 1])
 
@@ -193,7 +195,8 @@ FAKE_LEG = textwrap.dedent("""
         with open(ck + ".json") as f:
             done(json.load(f)["n_reads"])
     for off in (256,) if mode == "ends_first" else (256, 512, 768):
-        open(ck + ".npz", "w").close()
+        np.savez(ck + ".tmp.npz", meta=np.array(json.dumps({"n_reads": off})))
+        os.replace(ck + ".tmp.npz", ck + ".npz")
         with open(ck + ".json.tmp", "w") as f:
             json.dump({"n_reads": off}, f)
         os.replace(ck + ".json.tmp", ck + ".json")

@@ -96,6 +96,12 @@ class GenoConfig:
                                    # scatters they replace were the step's
                                    # largest scatter-lane cost); overflow
                                    # counted + auto-escalated
+    amb_hits_per_read: float = 0.25  # ambiguous exact hits (k-mers with
+                                   # 2-10 genome positions, read through
+                                   # aux rows) kept per read of a batch:
+                                   # NA = B * this slots, their aux events
+                                   # 4 * NA; overflow counted
+                                   # (amb_overflow) + auto-escalated
     probe_active_frac: float = 0.25  # active-lane fraction kept by the
                                    # neighbor-probe pre-compaction (BF
                                    # bounds + base masks kill most lanes;

@@ -40,6 +40,10 @@ from .scan_ops import compact_src, cumsum_mask
 
 _I64 = torch.int64
 
+# stats of the port's step that the JAX package's step lacks: it drops the
+# spill of its ambiguous-exact compaction without a counter
+PORT_ONLY_STATS = ("amb_overflow", "amb_hits")
+
 
 @dataclasses.dataclass
 class _Shapes:
@@ -293,7 +297,7 @@ class BatchProcessor:
         r_am_v = r_usable & (r_flag != 0)
         s_am_v = s_usable & (s_flag != 0)
 
-        NA = max(64, B // 4)
+        NA = max(64, int(B * cfg.amb_hits_per_read))
         am_mask = torch.stack([r_am_v, s_am_v], -1).reshape(-1)  # (b, k, d)
         na_src, amb_overflow = compact_src(am_mask, NA)
         na_ok = na_src >= 0
@@ -365,7 +369,8 @@ class BatchProcessor:
         ev_overflow = (ev_total - E).clamp(min=0).sum()
         h_n = h_ok.sum()
         tune_stats = dict(ev_max=ev_total.max(), lowq_n=lowq.sum(),
-                          probe_hits=h_n, probe_lanes_max=h_n)
+                          probe_hits=h_n, probe_lanes_max=h_n,
+                          amb_hits=am_mask.sum())
 
         # Event records are two words [idx, meta] with
         # meta = k | isnb<<5 | valid<<6 | src<<7, scattered into
@@ -467,6 +472,7 @@ class BatchProcessor:
         process, target, cand_ovf = self.vote(ev_idx, meta, ev_total, C)
         stats = dict(ni_overflow=ni_overflow, probe_overflow=ph_overflow,
                      event_overflow=ev_overflow, sev_overflow=sev_overflow,
+                     amb_overflow=amb_overflow,
                      cand_overflow=cand_ovf, snp_scan_overflow=scan_ovf,
                      **tune_stats)
         return dict(buf=buf, process=process, target=target,

@@ -89,6 +89,10 @@ def _escalate_config(cfg: GenoConfig, tripped) -> GenoConfig:
             bump("probe_active_frac", 1.0)
         elif base == "sev_overflow":
             bump("sparse_events_frac", 1.0)
+        elif base == "amb_overflow":
+            # capped where every exact lookup (ref and SNP, each k-mer
+            # slot) of every read has a slot
+            bump("amb_hits_per_read", 2 * cfg.max_kmers_per_read)
         elif base == "site_slot_overflow":
             bump("sites_per_context", 32)
         elif base == "route_overflow":

@@ -23,6 +23,43 @@ def synth_genome(rng, sizes=(20_000,), names=("chrS1",)):
     return out
 
 
+def synth_repeat_genome(rng, size, dup_share, copies=(2, 10),
+                        seg_len=(1000, 3000), divergence=0.01,
+                        high_copy=(16, 400), name="chrR1"):
+    """A repeat-rich genome in ``synth_genome``'s form (so ``write_inputs``
+    and ``build_synth_index`` take it unchanged): one chromosome of
+    ``size`` uniform random bases in which segment families cover about
+    ``dup_share`` of the bases. A family is a random segment of
+    ``seg_len`` bases (inclusive range) written at ``copies`` (inclusive
+    range) random places, each copy with its own substitutions at rate
+    ``divergence``; copies may overlap one another. Its 32-mers thus hit
+    dictionary rows with 2-10 genome positions (aux rows) and their
+    Hamming-1 neighbors. ``high_copy`` = (copies, length) adds one exact
+    family of more than 10 copies, whose 32-mers are unusable
+    (POS_AMBIGUOUS) rows; None leaves it out.
+
+    The port's own test data, with no JAX counterpart: the uniform draws
+    of ``synth_genome`` almost never reach aux rows."""
+    g = rng.integers(0, 4, size, dtype=np.uint8)
+    covered = 0
+    while covered < dup_share * size:
+        n = int(rng.integers(copies[0], copies[1] + 1))
+        length = int(rng.integers(seg_len[0], seg_len[1] + 1))
+        seg = rng.integers(0, 4, length, dtype=np.uint8)
+        for p in rng.integers(0, size - length, n):
+            cp = seg.copy()
+            sub = np.flatnonzero(rng.random(length) < divergence)
+            cp[sub] = (cp[sub] + rng.integers(1, 4, sub.size)) % 4
+            g[p:p + length] = cp
+        covered += n * length
+    if high_copy is not None:
+        n, length = high_copy
+        seg = rng.integers(0, 4, length, dtype=np.uint8)
+        for p in rng.integers(0, size - length, n):
+            g[p:p + length] = seg
+    return [(name, _BASES[g])]
+
+
 def write_inputs(tmpdir: str, rng, genome, n_snps=40, n_reads=2000,
                  read_len=101, err_frac=0.15):
     fa = os.path.join(tmpdir, "genome.fa")

@@ -43,6 +43,8 @@ import sys
 import threading
 import time
 
+from ..engine.checkpoint import read_meta
+from ..errors import InputError
 from .rehearse_wgs import default_cache, host_info
 
 
@@ -60,12 +62,13 @@ def leg_command(args, extra) -> list:
 
 
 def checkpoint_offset(ck: str):
-    """The read offset of the checkpoint ``ck`` (None before the first)."""
+    """The read offset of the checkpoint ``ck`` as a resume takes it (None
+    before the first)."""
     try:
-        with open(ck + ".json") as f:
-            return int(json.load(f)["n_reads"])
-    except (OSError, ValueError, KeyError):
+        meta = read_meta(ck)
+    except InputError:
         return None
+    return None if meta is None else int(meta["n_reads"])
 
 
 def kill_past(procs, kill=None, poll_s=0.01):

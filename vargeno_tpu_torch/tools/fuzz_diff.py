@@ -120,11 +120,16 @@ def prepare(seed: int, tmpdir: str, big: bool | None = None) -> Prepared:
         oracle.run_fastq_parallel(fq)
     else:
         oracle.run_fastq(fq)
-    pos = index.sites.pos
-    orc_ref = np.array([oracle.pileup[int(p)][4] for p in pos], np.int64)
-    orc_alt = np.array([oracle.pileup[int(p)][5] for p in pos], np.int64)
-    return Prepared(case, index, vcf, fq, orc_ref, orc_alt,
+    return Prepared(case, index, vcf, fq, *site_counts(oracle, index),
                     time.perf_counter() - t0)
+
+
+def site_counts(oracle: OracleEngine, index: store.VarGenoIndex):
+    """The oracle's (ref, alt) counts so far at each of ``index``'s sites,
+    in site order (int64, saturated at MAX_COV)."""
+    pos = index.sites.pos
+    return (np.array([oracle.pileup[int(p)][4] for p in pos], np.int64),
+            np.array([oracle.pileup[int(p)][5] for p in pos], np.int64))
 
 
 def say(msg: str) -> None:

@@ -45,6 +45,8 @@ import time
 
 import numpy as np
 
+from ..engine.checkpoint import read_meta
+
 T0 = time.time()
 
 
@@ -324,10 +326,8 @@ def stream(runner, fq, limit_batches=None, checkpoint=None,
 
     from ..kernels.vote import vote_scan_records
 
-    resumed_from = 0
-    if checkpoint and os.path.exists(checkpoint + ".json"):
-        with open(checkpoint + ".json") as f:
-            resumed_from = int(json.load(f)["n_reads"])
+    meta = read_meta(checkpoint) if checkpoint else None
+    resumed_from = int(meta["n_reads"]) if meta else 0
     stop = threading.Event()
     if progress_every:
         def progress():

@@ -92,7 +92,7 @@ def step_traffic(cfg, dix, B: int, lowq_frac: float = 0.05) -> StepTraffic:
     # _scan_lanes), not the full (NI, S) grids
     CS_r = max(64, int(NI * scan_r * min(cfg.scan_active_frac, 1.0)))
     CS_s = max(64, int(NI * scan_s * min(cfg.scan_active_frac, 1.0)))
-    NA = max(64, B // 4)
+    NA = max(64, int(B * cfg.amb_hits_per_read))
     NAX = max(64, 4 * NA)
     NSE = max(64, int(B * (E + 1) * cfg.sparse_events_frac))
 

@@ -1,11 +1,12 @@
 """Multi-process geno of the port (``dist/multihost.py``) on the CPU over
 gloo: clusters of real OS processes running the port's CLI, 2 processes x
-2 host shards (``--device cpu --mesh 4``), each VCF byte-identical to the
-reference binary's golden output; a finished run's merged counts equal to
-the JAX single-device runner's; checkpoints crossing process counts and
-packages; the process-spanning all-to-all against the single-process
-mesh's; a failed peer ending its cluster; the striped reader against the
-JAX package's. Every cluster runs under its own time limit."""
+2 host shards (``--device cpu --mesh 4``) and 4 processes x 1, each VCF
+byte-identical to the reference binary's golden output; a finished run's
+merged counts equal to the JAX single-device runner's; checkpoints
+crossing process counts and packages; kill / resume at 2 x 2 and 4 x 1;
+the process-spanning all-to-all against the single-process mesh's; a
+failed peer ending its cluster; the striped reader against the JAX
+package's. Every cluster runs under its own time limit."""
 
 import argparse
 import os
@@ -71,16 +72,18 @@ def _geno(prefix, out, port, pid, extra=(), P=2, mesh=4):
             "--num-processes", str(P), "--process-id", str(pid), *extra]
 
 
-def _cluster(prefix, tmp_path, extra=(), tag="run"):
-    """A 2 process x 2 shard geno run; returns process 0's VCF."""
+def _cluster(prefix, tmp_path, extra=(), tag="run", P=2, mesh=4):
+    """A P process geno run of ``mesh`` shards in all (2 x 2 by default);
+    returns process 0's VCF."""
     out = str(tmp_path / f"{tag}.vcf")
     port = _free_port()
     rcs, outs = _spawn([
-        _geno(prefix, out, port, 0, extra),
-        _geno(prefix, str(tmp_path / f"{tag}.ignored.vcf"), port, 1,
-              extra)])
-    assert rcs == [0, 0], "\n".join(o[-3000:] for o in outs)
-    assert not os.path.exists(tmp_path / f"{tag}.ignored.vcf")
+        _geno(prefix, out if pid == 0 else
+              str(tmp_path / f"{tag}.ignored{pid}.vcf"), port, pid, extra,
+              P=P, mesh=mesh) for pid in range(P)])
+    assert rcs == [0] * P, "\n".join(o[-3000:] for o in outs)
+    for pid in range(1, P):
+        assert not os.path.exists(tmp_path / f"{tag}.ignored{pid}.vcf")
     assert "overflow" not in "".join(outs)
     return open(out).read()
 
@@ -124,6 +127,13 @@ def test_two_processes_golden(prefix, tmp_path, extra):
     capacity overflow (replicated stats escalate identically on both
     processes) all byte-match golden."""
     assert _cluster(prefix, tmp_path, extra) == GOLDEN
+
+
+def test_four_processes_of_one_shard_golden(prefix, tmp_path):
+    """The layout of four cards with a process a card: 4 processes x 1
+    host shard of the sharded dictionary (every exchange crosses
+    processes, none is a thread's) byte-match golden."""
+    assert _cluster(prefix, tmp_path, ("--sharded-dict",), P=4) == GOLDEN
 
 
 def test_counts_equal_jax_runner(prefix, tmp_path, jax_runs):
@@ -268,10 +278,10 @@ import sys, time
 from vargeno_tpu_torch.config import GenoConfig
 from vargeno_tpu_torch.dist import multihost
 from vargeno_tpu_torch.index import store
-port, rank, prefix, out, ck, pace = sys.argv[1:7]
-cluster = multihost.initialize(f"tcp://localhost:{port}", 2, int(rank),
+port, rank, P, L, prefix, out, ck, pace = sys.argv[1:9]
+cluster = multihost.initialize(f"tcp://localhost:{port}", int(P), int(rank),
                                "gloo", timeout=60)
-mesh = multihost.ProcessMesh(cluster, ["cpu", "cpu"])
+mesh = multihost.ProcessMesh(cluster, ["cpu"] * int(L))
 runner = multihost.MultiHostGenoRunner(store.load(prefix), mesh,
                                        GenoConfig(batch_reads=256,
                                                   max_read_len=128,
@@ -287,9 +297,11 @@ multihost.shutdown(cluster)
 """
 
 
+@pytest.mark.parametrize("P,L", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
 def test_cluster_killed_after_a_checkpoint_resumes_byte_identical(
-        prefix, tmp_path):
-    """Kill / resume across processes: a 2-process x 2-shard cluster
+        prefix, tmp_path, P, L):
+    """Kill / resume across processes: a cluster of P processes x L
+    shards (2 x 2, and 4 x 1: a process a card on four cards)
     checkpointing every 2 global batches is SIGKILLed, every rank, once a
     checkpoint past half the reads is on disk; the same cluster run again
     resumes from it. Its VCF is byte-identical to an uninterrupted
@@ -303,11 +315,11 @@ def test_cluster_killed_after_a_checkpoint_resumes_byte_identical(
     def leg(out, check, pace=0.0, kill=None):
         port = _free_port()
         procs = [subprocess.Popen(
-            [sys.executable, "-c", code, str(port), str(r), prefix,
-             str(tmp_path / out), check, str(pace)], cwd=REPO,
+            [sys.executable, "-c", code, str(port), str(r), str(P), str(L),
+             prefix, str(tmp_path / out), check, str(pace)], cwd=REPO,
             env=dict(os.environ, OMP_NUM_THREADS="1"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
+            for r in range(P)]
         try:
             killed_at = kill_past(procs, kill)
             outs = [p.communicate(timeout=CLUSTER_TIMEOUT)[0]
@@ -320,18 +332,18 @@ def test_cluster_killed_after_a_checkpoint_resumes_byte_identical(
         return [p.returncode for p in procs], outs, killed_at
 
     rcs, outs, _ = leg("full.vcf", "")
-    assert rcs == [0, 0], "\n".join(o[-3000:] for o in outs)
+    assert rcs == [0] * P, "\n".join(o[-3000:] for o in outs)
     full = open(tmp_path / "full.vcf").read()
     assert full == GOLDEN
     half, total = 20443 // 2, 20443
     rcs, outs, killed_at = leg("resumed.vcf", ck, pace=0.05,
                                kill=(ck, half, total))
-    assert rcs == [-9, -9] and killed_at is not None, outs
+    assert rcs == [-9] * P and killed_at is not None, outs
     assert not os.path.exists(tmp_path / "resumed.vcf")
     assert half <= checkpoint_offset(ck) < total
     assert checkpoint_offset(ck) % 1024 == 0   # whole global batches
     rcs, outs, _ = leg("resumed.vcf", ck)
-    assert rcs == [0, 0], "\n".join(o[-3000:] for o in outs)
+    assert rcs == [0] * P, "\n".join(o[-3000:] for o in outs)
     assert open(tmp_path / "resumed.vcf").read() == full
     assert checkpoint_offset(ck) == total
 

@@ -146,7 +146,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    sampled every 10 ms through the stage).
 
 13. scaling -- the scaling tools on one card, as checks of their paths
-   (no scaling number): ``python -m vargeno_tpu_torch.tools.bench_scaling
+   (no scaling number; in the default run it runs while phase 11's big
+   seed finishes on the card): ``python -m vargeno_tpu_torch.tools.bench_scaling
    --devices 1``; the tool's ``run_point`` at D = 2 naming cuda:0 twice,
    both modes, on its synthetic draw (2 Mb, 5,000 SNPs, 8 batches of
    2,048 reads a shard); ``python -m
@@ -179,15 +180,44 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    mismatches; the four single-card VCFs must be byte-identical; the vote
    kernel must launch in every run and process.
 
-Phase order: 1, 2, then 3-6, 11 and 13 beside genome (a) and (e) and
-beside the making of phase 7's and phase 14's datasets and indexes (a
-process each, host only), then 7-10, genome (b)-(d) and 14; phases 7-10
-never run beside those processes, so their reads/s stays comparable with
-earlier runs. The log gives each phase's seconds. A JSON line
-``{"mesh": ...}`` carries phase 9's and phase 10's numbers,
+15. pipeline -- the host dispatch pipeline (``engine/geno.py``: batches in
+   flight behind the fetch worker, chained totals that rewind on
+   escalation, grouped dispatch, the codes path) on phase 7's workload
+   and index, untuned. GenoRunner at (pipeline_depth, group_size,
+   pre_encode) = (1, 1, T), (2, 1, T), (3, 1, T), (2, 2, T), (2, 4, T),
+   (1, 1, F): a warm run of 2 x G batches, then ``PIPELINE_PASSES`` timed
+   passes from fresh counts; each point's VCF byte-identical to the
+   (1, 1, T) point's, no overflow left, the vote kernel launched (count
+   set to 0 just before the passes, read just after). Prints each point's
+   reads/s (median of its passes), retry batches, escalations, rewinds,
+   vote launches and the main thread's seconds a pass in ``read_batch``,
+   ``dispatch``, ``finalize_wait`` and ``enqueue_retry``. Then: a forced
+   escalation at depth 3 (``events_per_read`` 8 and ``agree_cap`` 1, which
+   the workload's ~3 agreeing contexts a read must trip): the same VCF, at
+   least one rewind of a later in-flight batch; the pinned buffers at
+   depth 3 in groups of 2: every finalized handle's stats row and masks
+   equal to a depth-1 rerun of its own batch (a staging buffer shared
+   between handles would return another batch's row); whether
+   ``torch.cuda.Event.synchronize`` releases the GIL (a thread waits on an
+   event behind a sleep kernel of ~0.2 s while this thread counts); the
+   sharded dictionary at D = 2 (cuda:0 twice), depth 2, groups of 2: the
+   same VCF; 2 processes x 1 shard on cuda:0 over gloo (``--mh-worker``,
+   sharded dictionary) on the first 65,536 reads at depth 2 and at depth
+   1: the same VCF; and ``python -m vargeno_tpu_torch.tools.
+   tune_host_pipeline quick --passes 1``: its JSON line.
+
+Phase order: 1, 2, then 3-6, 11 and 13 (13 beside 11's big seed) beside
+genome (a) and (e) and beside the making of phase 7's and phase 14's
+datasets and indexes (a process each, host only), then 7, 15, 8-10,
+genome (b)-(d) and 14; phases
+7-10 and 15 never run beside those processes, so their reads/s stays
+comparable with earlier runs. The log gives each phase's seconds. A JSON
+line ``{"mesh": ...}`` carries phase 9's and phase 10's numbers,
 ``{"geno_bench": ...}`` phase 8's, ``{"fuzz": ...}`` phase 11's,
 ``{"scaling": ...}`` phase 13's, ``{"genome": ...}`` phase 12's,
-``{"repeats": ...}`` phase 14's.
+``{"repeats": ...}`` phase 14's, ``{"pipeline": ...}`` phase 15's. Every
+runner of every phase runs at the default ``pipeline_depth`` 2 unless a
+phase names another.
 
 wgs (``--wgs`` only) -- the JAX package's headline scale
    (docs/WORKFLOWS.md:62-110; hg19 + dbSNP-common): a 3,000 Mb genome,
@@ -318,6 +348,13 @@ WGS3_MB, WGS3_SNPS, WGS3_DEVICES = 3000, 5_000_000, "cuda:0,cuda:0"
 # free bytes the index, and the inputs and outputs, need (the index may
 # lie on another file system: <cache>/wgs.vgt may link to a directory)
 WGS3_INDEX_DISK, WGS3_IO_DISK = 47e9, 6e9
+# phase pipeline: the (pipeline_depth, group_size, pre_encode) points, the
+# first the reference of the others' VCFs; timed passes a point; the reads
+# of its 2-process run
+PIPELINE_POINTS = [(1, 1, True), (2, 1, True), (3, 1, True), (2, 2, True),
+                   (2, 4, True), (1, 1, False)]
+PIPELINE_PASSES, PIPELINE_MH_READS = 3, 65_536
+PIPELINE_DEVICES = ["cuda:0", "cuda:0"]   # its D = 2 mesh and 2 processes
 # phase repeats: bench.py's widths on a genome with REPEATS_DUP_SHARE of
 # its bases in families of 2-10 copies (testing.synth_repeat_genome), where
 # the default ambiguous-exact capacity must spill at BATCH; the 2-process
@@ -760,16 +797,17 @@ def check_no_overflow(runner, tag):
 def record_first_attempt(runner) -> dict:
     """The stats row of ``runner``'s first attempt (its first batch, before
     any escalation), filled in once the run has made it: the runner's
-    ``_attempt`` is wrapped, the rows it returns are left as they are."""
+    ``_settle`` is wrapped (batches are settled in dispatch order), the
+    rows it returns are left as they are."""
     first: dict = {}
-    attempt = runner._attempt
+    settle = runner._settle
 
     def recorded(*args):
-        out = attempt(*args)
+        out = settle(*args)
         if not first:
-            first.update(out[2])
+            first.update(out[0])
         return out
-    runner._attempt = recorded
+    runner._settle = recorded
     return first
 
 
@@ -1424,6 +1462,304 @@ def phase_real(card: str, gather_rates: dict, parent: str | None,
                 vote_call_ops=vote_ops, step_ops=mine["step_ops"])
 
 
+def gil_released_by_event_wait() -> dict:
+    """Whether ``torch.cuda.Event.synchronize`` releases the GIL: a thread
+    waits on an event recorded behind a sleep kernel of about 0.2 s, while
+    this thread counts loop turns until it is done. A wait that held the
+    GIL would leave this thread next to no turns."""
+    import threading
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(350_000_000)   # clock cycles
+    issue_s = time.perf_counter() - t0
+    ev = torch.cuda.Event()
+    ev.record()
+    waited = threading.Event()
+
+    def wait():
+        ev.synchronize()
+        waited.set()
+
+    t = threading.Thread(target=wait)
+    t0 = time.perf_counter()
+    t.start()
+    turns = 0
+    while not waited.is_set():
+        turns += 1
+    wait_s = time.perf_counter() - t0
+    t.join()
+    return dict(turns=turns, wait_s=wait_s, issue_s=issue_s,
+                released=turns > 1000 and wait_s > 0.01)
+
+
+def phase_pipeline(card: str) -> dict:
+    """Phase 15 (module docstring): the host dispatch pipeline at every
+    point of PIPELINE_POINTS on the real phase's workload and index, a
+    forced escalation with batches in flight, the pinned buffers' check,
+    the GIL check, the sharded dictionary and two processes under the
+    pipeline, and the sweep tool. Returns the numbers it printed."""
+    import dataclasses as dc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from vargeno_tpu_torch.config import GenoConfig
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.engine.device_index import build_device_index
+    from vargeno_tpu_torch.engine.geno import (Fetch, GenoRunner, step_vec,
+                                               unpack_vec)
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.io.fastq import autosize_shapes
+    from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
+    from vargeno_tpu_torch.tools.bench import timed_pass
+    from vargeno_tpu_torch.utils.profiling import StageTimer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    d, prefix = real_paths()
+    vcf, fq = os.path.join(d, "snps.vcf"), os.path.join(d, "reads.fq")
+    L, K = autosize_shapes(fq)
+    base = GenoConfig(batch_reads=BATCH, max_read_len=L, max_kmers_per_read=K,
+                      ht_target_load=HT_LOAD)
+    index = store.load(prefix)
+    dix = build_device_index(index, DEVICE, HT_LOAD)
+    torch.cuda.synchronize()
+    ref_vcf = None
+
+    def vcf_of(runner, tag):
+        out = os.path.join(d, f"pipeline_{tag}.vcf")
+        runner.write_vcf(vcf, out)
+        with open(out) as f:
+            return f.read()
+
+    def same_vcf(runner, tag):
+        if vcf_of(runner, tag.replace(" ", "_").replace(",", "")) != ref_vcf:
+            raise AssertionError(f"pipeline/{tag}: VCF differs from the "
+                                 f"(1, 1, T) point's")
+
+    points = {}
+    for depth, group, pre in PIPELINE_POINTS:
+        tag = f"({depth}, {group}, {'T' if pre else 'F'})"
+        cfg = dc.replace(base, pipeline_depth=depth, group_size=group,
+                         pre_encode=pre)
+        runner = GenoRunner(index, cfg, device=DEVICE, dix=dix)
+        runner.consume_fastq(fq, limit_batches=2 * group)   # warm
+        runner.timer = StageTimer(sync=False)
+        n0 = (runner.n_retry_batches, runner.n_escalations,
+              runner.n_rewinds)
+        vote_fn.launches = 0
+        rates, counts = [], None
+        for _ in range(PIPELINE_PASSES):
+            rates.append(timed_pass(runner, fq))
+            got = runner.host_counts()
+            if counts is not None and not all(
+                    np.array_equal(a, b) for a, b in zip(got, counts)):
+                raise AssertionError(f"pipeline/{tag}: two passes count "
+                                     f"differently")
+            counts = got
+        launches = vote_fn.launches
+        check_no_overflow(runner, f"pipeline/{tag}")
+        if launches <= 0:
+            raise AssertionError(f"pipeline/{tag}: the vote kernel was "
+                                 f"never launched")
+        if ref_vcf is None:
+            ref_vcf = vcf_of(runner, "reference")
+        else:
+            same_vcf(runner, tag)
+        n = PIPELINE_PASSES
+        stages = {k: v / n for k, v in sorted(runner.timer.totals.items())}
+        got = dict(reads_s=statistics.median(rates), passes=rates,
+                   retry_batches=(runner.n_retry_batches - n0[0]) / n,
+                   escalations=runner.n_escalations - n0[1],
+                   rewinds=runner.n_rewinds - n0[2],
+                   vote_launches=launches, stages_s_a_pass=stages)
+        points[tag] = got
+        log("pipeline", f"[{card}] depth {depth}, group {group}, pre_encode "
+                        f"{pre}: {got['reads_s']:.1f} reads/s (median of "
+                        f"{[round(r, 1) for r in rates]}); VCF "
+                        + ("the reference" if len(points) == 1 else
+                           "byte-identical to (1, 1, T)")
+                        + f"; a pass: {got['retry_batches']:.1f} retry "
+                        f"batches; escalations {got['escalations']}, rewinds "
+                        f"{got['rewinds']}, vote launches {launches} over "
+                        f"{n} passes; main thread s a pass: "
+                        + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    stages.items()))
+        del runner
+
+    # a forced escalation with batches in flight
+    cfg = dc.replace(base, pipeline_depth=3, events_per_read=8, agree_cap=1)
+    runner = GenoRunner(index, cfg, device=DEVICE, dix=dix)
+    vote_fn.launches = 0
+    t0 = time.perf_counter()
+    runner.consume_fastq(fq)
+    torch.cuda.synchronize()
+    esc_s = time.perf_counter() - t0
+    check_no_overflow(runner, "pipeline/forced escalation")
+    if runner.n_escalations <= 0 or runner.n_rewinds <= 0:
+        raise AssertionError(f"pipeline/forced escalation: escalations "
+                             f"{runner.n_escalations}, rewinds "
+                             f"{runner.n_rewinds}")
+    if vote_fn.launches <= 0:
+        raise AssertionError("pipeline/forced escalation: no vote launch")
+    same_vcf(runner, "forced escalation")
+    escalation = dict(escalations=runner.n_escalations,
+                      rewinds=runner.n_rewinds, seconds=esc_s,
+                      vote_launches=vote_fn.launches,
+                      final_events_per_read=runner._cfg_run.events_per_read,
+                      final_agree_cap=runner._cfg_run.agree_cap)
+    log("pipeline", f"[{card}] forced escalation at depth 3 (events_per_read "
+                    f"8, agree_cap 1): VCF byte-identical to (1, 1, T); "
+                    f"escalations {runner.n_escalations}, rewinds "
+                    f"{runner.n_rewinds} later in-flight batches redone, "
+                    f"ending at events_per_read "
+                    f"{escalation['final_events_per_read']}, agree_cap "
+                    f"{escalation['final_agree_cap']}; {esc_s:.3f} s, vote "
+                    f"launches {vote_fn.launches}")
+    del runner
+
+    # the pinned buffers: every finalized row against a depth-1 rerun
+    cfg = dc.replace(base, pipeline_depth=3, group_size=2)
+    runner = GenoRunner(index, cfg, device=DEVICE, dix=dix)
+    kept, last = [], {}
+    settle, finalize = runner._settle, runner._finalize
+
+    def settled(*a):
+        last["out"] = settle(*a)
+        return last["out"]
+
+    def finalized(p):
+        masks = finalize(p)
+        kept.append((p["kind"], p["args"], p["cfg"], last["out"][0], masks))
+        return masks
+    runner._settle, runner._finalize = settled, finalized
+    runner.consume_fastq(fq)
+    torch.cuda.synchronize()
+    z = runner._fresh_counts()
+    for i, (kind, args, pcfg, row, masks) in enumerate(kept):
+        _, _, keys, vec = step_vec(runner._proc(pcfg), args, kind, *z)
+        row1, masks1 = unpack_vec(Fetch([vec]).result()[0], keys,
+                                  runner._mask_shape(kind, args))
+        if row1 != row or not all(np.array_equal(a, b)
+                                  for a, b in zip(masks, masks1)):
+            raise AssertionError(f"pipeline/pinned buffers: handle {i} "
+                                 f"({kind}) settled a row or masks other "
+                                 f"than its own batch's")
+    same_vcf(runner, "pinned buffers")
+    log("pipeline", f"pinned buffers at depth 3, groups of 2: all "
+                    f"{len(kept)} finalized handles' stats rows and masks "
+                    f"equal to depth-1 reruns of their own batches "
+                    f"({sum(k[0] == 'group' for k in kept)} groups)")
+    n_checked = len(kept)
+    del runner, kept, last
+
+    gil = gil_released_by_event_wait()
+    log("pipeline", f"torch.cuda.Event.synchronize "
+                    + ("releases" if gil["released"] else "HOLDS")
+                    + f" the GIL: this thread turned {gil['turns']} times "
+                    f"while another waited {gil['wait_s']:.3f} s on an event "
+                    f"(the sleep kernel issued in {gil['issue_s']:.4f} s)")
+
+    # the sharded dictionary, D = 2 on cuda:0 twice, depth 2, groups of 2
+    del dix
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sd = ShardedDictGenoRunner(index, make_mesh(devices=PIPELINE_DEVICES),
+                               dc.replace(base, pipeline_depth=2,
+                                          group_size=2))
+    place_s = time.perf_counter() - t0
+    vote_fn.launches = 0
+    t0 = time.perf_counter()
+    sd.consume_fastq(fq)
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    check_no_overflow(sd, "pipeline/sharded dictionary")
+    if vote_fn.launches <= 0:
+        raise AssertionError("pipeline/sharded dictionary: no vote launch")
+    same_vcf(sd, "sharded dictionary")
+    sharded = dict(reads_s=sd.n_reads / sd_s, place_s=place_s,
+                   escalations=sd.n_escalations, rewinds=sd.n_rewinds,
+                   vote_launches=vote_fn.launches)
+    log("pipeline", f"[{card}] sharded dictionary D = 2 on cuda:0 twice, "
+                    f"depth 2, groups of 2: VCF byte-identical to (1, 1, T); "
+                    f"{sharded['reads_s']:.1f} reads/s (placement "
+                    f"{place_s:.2f} s excluded), escalations "
+                    f"{sd.n_escalations}, rewinds {sd.n_rewinds}, vote "
+                    f"launches {vote_fn.launches}")
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 processes on cuda:0 over gloo, depth 2 against depth 1
+    head = os.path.join(d, f"head{PIPELINE_MH_READS}.fq")
+    if not os.path.exists(head):
+        with open(fq) as src, open(head + ".tmp", "w") as dst:
+            for _ in range(4 * PIPELINE_MH_READS):
+                dst.write(src.readline())
+        os.replace(head + ".tmp", head)
+    outs = {k: os.path.join(d, f"pipeline_mh_depth{k}.vcf") for k in (1, 2)}
+    spec = dict(prefix=prefix, fq=head, vcf_in=vcf,
+                config=dict(batch_reads=BATCH, max_read_len=L,
+                            max_kmers_per_read=K, ht_target_load=HT_LOAD),
+                timeout=300,
+                runs=[dict(tag=f"depth {k}", dict=True, queued=True,
+                           cfg=dict(pipeline_depth=k), out=outs[k])
+                      for k in (1, 2)])
+    t0 = time.perf_counter()
+    runs = finish_cluster(start_cluster(
+        "pipeline, 2 processes on cuda:0 over gloo", "gloo",
+        [[dev] for dev in PIPELINE_DEVICES], spec), 600)
+    mh_wall = time.perf_counter() - t0
+    for k in (1, 2):
+        got = runs.get(f"depth {k}", [])
+        if len(got) != 2 or any(g["overflow"] or g["vote_launches"] <= 0
+                                for g in got):
+            raise AssertionError(f"pipeline/2 processes, depth {k}: {got}")
+    with open(outs[1]) as f, open(outs[2]) as g:
+        if f.read() != g.read():
+            raise AssertionError("pipeline/2 processes: the depth-2 VCF "
+                                 "differs from the depth-1 one")
+    mh = {k: dict(reads_s=v[0]["reads"] / max(g["geno_s"] for g in v),
+                  retry_batches=v[0]["retry_batches"],
+                  escalations=v[0]["escalations"],
+                  vote_launches=[g["vote_launches"] for g in v])
+          for k, v in runs.items()}
+    log("pipeline", f"[{card}] 2 processes x 1 shard on cuda:0 over gloo, "
+                    f"sharded dictionary, the first {PIPELINE_MH_READS} "
+                    f"reads: the depth-2 VCF byte-identical to the depth-1 "
+                    f"one; " + "; ".join(
+                        f"{k}: {v['reads_s']:.1f} reads/s, "
+                        f"{v['retry_batches']} lockstep retry batches, vote "
+                        f"launches {v['vote_launches']}"
+                        for k, v in mh.items())
+                    + f"; cluster wall {mh_wall:.1f} s")
+
+    # the sweep tool (quick points, one pass each)
+    wl = real_workload()
+    env = dict(os.environ, VGT_BENCH_CACHE=wl.cache,
+               VGT_BENCH_MB=str(wl.mb), VGT_BENCH_SNPS=str(wl.snps),
+               VGT_BENCH_READS=str(wl.reads), VGT_BENCH_BATCH=str(wl.batch))
+    out = run_tool("pipeline", "tune_host_pipeline",
+                   ["quick", "--passes", "1"], env, 600)
+    for line in out.strip().splitlines()[:-1]:
+        log("pipeline", f"tune_host_pipeline: {line}")
+    tool = last_json(out)
+    log("pipeline", f"tune_host_pipeline quick: {json.dumps(tool)}")
+    seconds = time.perf_counter() - t_phase
+    log("pipeline", f"phase pipeline {seconds:.1f} s")
+    return dict(card=card, points=points, forced_escalation=escalation,
+                pinned_handles_checked=n_checked, gil=gil,
+                sharded_dict=sharded, multihost=mh, tool=tool,
+                seconds=seconds)
+
+
 def run_tool(tag: str, module: str, args, env: dict, timeout: float) -> str:
     """``python -m vargeno_tpu_torch.tools.<module> args`` from the
     checkout's root in a process of its own; its stderr lines are logged
@@ -2037,7 +2373,7 @@ def finish_fuzz_big(proc, timeout: float) -> dict:
                 waited_s=time.perf_counter() - t0)
 
 
-def phase_fuzz(card: str) -> dict:
+def phase_fuzz(card: str, beside=None) -> dict:
     """Differential fuzzing (``vargeno_tpu_torch/tools/fuzz_diff.py``) of
     every runner against the sequential oracle, seeds fixed in advance.
     (a) Seeds 0-23 (``FUZZ_SEEDS``), each through GenoRunner on the card
@@ -2048,7 +2384,10 @@ def phase_fuzz(card: str) -> dict:
     processes x 1 shard naming cuda:0 over gloo, replicated and sharded
     dictionary, each process loading the seed's index from the port's
     ``store.save``; (e) seed 0 at VGT_FUZZ_BIG scale through the tool's
-    command line in a process of its own, beside (a)-(d). Every run's
+    command line in a process of its own, beside (a)-(d) and then beside
+    ``beside()`` (phase scaling, whose numbers are checks of its paths:
+    the big seed is the phase's longest run), whose result is returned
+    under ``beside``. Every run's
     ``min(count, 63)`` must equal the oracle's at every site, with no
     overflow left after escalation and the vote kernel launched (its
     count set to 0 just before each run and read just after). All runs
@@ -2152,6 +2491,7 @@ def phase_fuzz(card: str) -> dict:
                       vote_fn.launches, got["engine_s"], got["overflow"])
         for prep, spec, cluster in clusters:
             finish_mh(prep, spec, cluster)
+        beside_got = beside() if beside is not None else None
         big_got = finish_fuzz_big(big, 780)
     finally:   # on a failure, stop what still runs
         for p in [big] + [p for _, _, (_, procs) in clusters for p in procs]:
@@ -2172,12 +2512,12 @@ def phase_fuzz(card: str) -> dict:
     phase_s = time.perf_counter() - t_phase
     log("fuzz", f"phase fuzz {phase_s:.1f} s (the big seed's tool run "
                 f"{big_got['engine_oracle_s']:.1f} s engine + oracle, beside "
-                f"the rest)")
+                f"the rest" + (" and phase scaling" if beside else "") + ")")
     if failures:
         raise AssertionError("fuzz: " + "; ".join(failures))
     return dict(card=card, seeds=list(FUZZ_SEEDS),
                 multiprocess_seeds=list(FUZZ_MH_SEEDS), runners=tally,
-                big=big_got, seconds=phase_s)
+                big=big_got, seconds=phase_s, beside=beside_got)
 
 
 def genome_dir() -> str:
@@ -3798,8 +4138,10 @@ def main() -> int:
         open(go, "w").close()
         timed("golden", phase_golden)
         timed("mesh", phase_mesh)
-        fuzz = timed("fuzz", phase_fuzz, card)
-        scaling = timed("scaling", phase_scaling, card)
+        # phase scaling runs beside the end of phase fuzz's big seed
+        fuzz = timed("fuzz", phase_fuzz, card,
+                     lambda: timed("scaling", phase_scaling, card))
+        scaling = fuzz.pop("beside")
         real_prep = timed("real's dataset and index, the rest of their "
                           "wait", finish_tool, real_bg, 600, "real",
                           ("real_prep",))["real_prep"]
@@ -3816,6 +4158,7 @@ def main() -> int:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
     real = timed("real", phase_real, card, rates, parent, real_prep)
+    pipeline = timed("pipeline", phase_pipeline, card)
     geno_bench = timed("geno_bench", phase_geno_bench, card, rates, real)
     routed = timed("routed", phase_routed, card, real)
     mh = timed("multihost", phase_multihost, card, routed)
@@ -3835,6 +4178,7 @@ def main() -> int:
     print(json.dumps({"scaling": scaling}), flush=True)
     print(json.dumps({"genome": genome}), flush=True)
     print(json.dumps({"repeats": repeats}), flush=True)
+    print(json.dumps({"pipeline": pipeline}), flush=True)
     main_shape = str(KERNEL_SHAPES[0][:3])
     before = real["parent"]
     print(json.dumps({"kernels": [
@@ -3871,6 +4215,14 @@ def main() -> int:
          "genome_batch_raw_launch_ms": genome["vote_on_step"]["raw_ms"],
          "repeats_launches": {k: v["vote_launches"]
                               for k, v in repeats["runs"].items()},
+         "pipeline_launches": {
+             **{k: v["vote_launches"] for k, v in pipeline["points"].items()},
+             "forced escalation":
+                 pipeline["forced_escalation"]["vote_launches"],
+             "sharded dictionary D = 2":
+                 pipeline["sharded_dict"]["vote_launches"],
+             **{f"2 processes {k}": v["vote_launches"]
+                for k, v in pipeline["multihost"].items()}},
          "shape": "(E, B, C) = " + str(KERNEL_SHAPES[0][:3]),
          **vote_t[KERNEL_SHAPES[0][:3]], "library_ms": None,
          "ms_before": before["eb_entry_ms"][main_shape] if before else None,

@@ -54,15 +54,15 @@ def prep(tmp_path_factory):
 
 
 def _recording(runner):
-    """Keep the stats row of every attempt the runner makes."""
+    """Keep the stats row of every attempt the runner settles."""
     rows = []
-    attempt = runner._attempt
+    settle = runner._settle
 
     def recorded(*a):
-        out = attempt(*a)
-        rows.append(dict(out[2]))
+        out = settle(*a)
+        rows.append(dict(out[0]))
         return out
-    runner._attempt = recorded
+    runner._settle = recorded
     return rows
 
 

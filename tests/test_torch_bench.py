@@ -39,7 +39,8 @@ torch.set_num_threads(2)
 LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "passes_clean",
              "passes_total", "pass_spread", "device_rate", "retry_frac",
              "index_build_s", "index_build_vs", "lane_roofline_frac",
-             "bw_roofline_frac", "device", "vote_launches"}
+             "bw_roofline_frac", "device", "vote_launches", "mode",
+             "group_size", "pipeline_depth"}
 SMALL_BLOOM = dict(ref_bf_bytes=1 << 21, ref_lite_bf_bytes=1 << 21,
                    snp_bf_bytes=1 << 18)
 
@@ -120,25 +121,31 @@ def test_bench_fails_on_an_overflow_left(wl, monkeypatch):
 
 # --- pick_runner's calibration, on a fake timer ---
 
+P = bench.Point
+ALL = bench.points()
+
+
 class _Fake:
-    """Stand-in runners and timer: ``rates[mode]`` is a list of the rates
-    its passes read, in turn; ``probe`` the device rate it reports."""
+    """Stand-in runners and timer: ``rates[point]`` is a list of the rates
+    its passes read, in turn (10 once it is empty, and for a point not
+    named); ``probe`` the device rate it reports."""
 
     def __init__(self, rates, probe=1000.0, fail=()):
-        self.rates = {m: list(r) for m, r in rates.items()}
+        self.rates = {p: list(r) for p, r in rates.items()}
         self.probe_rate = probe
         self.fail = fail
         self.made = []
         self.probed = 0
 
-    def make(self, mode):
-        if mode in self.fail:
-            raise RuntimeError(f"{mode} failed to build")
-        self.made.append(mode)
-        return mode
+    def make(self, point):
+        if point in self.fail:
+            raise RuntimeError(f"{point} failed to build")
+        self.made.append(point)
+        return point
 
     def time_pass(self, runner):
-        return self.rates[runner].pop(0)
+        rates = self.rates.get(runner)
+        return rates.pop(0) if rates else 10
 
     def probe(self, runner):
         self.probed += 1
@@ -155,72 +162,113 @@ def _write(path, **cal):
         json.dump(dict(key="card|512|4096", **cal), f)
 
 
+def test_points_cover_the_jax_pairs_and_the_pins():
+    pairs = [(p.group_size, p.pipeline_depth) for p in ALL
+             if p.mode == "queued"]
+    assert pairs == [(4, 2), (2, 2), (1, 2), (1, 3)]
+    assert [p.mode for p in ALL].count("queued_tuned") == 4
+    assert [p for p in ALL if p.mode == "inline_dual"] == [
+        P("inline_dual", 1, 2)]
+    assert bench.points("queued", 8, 3) == [P("queued", 8, 3)]
+    assert bench.points(depth=1)[:3] == [P("queued", 4, 1),
+                                         P("queued", 2, 1),
+                                         P("queued", 1, 1)]
+    assert all(p.mode != "inline_dual" for p in bench.points(group=4))
+    with pytest.raises(ValueError, match="no dispatch point"):
+        bench.points("inline_dual", 4)
+
+
+def test_pins_from_the_environment(monkeypatch):
+    for k in ("VGT_BENCH_MODE", "VGT_BENCH_GROUP", "VGT_BENCH_DEPTH"):
+        monkeypatch.delenv(k, raising=False)
+    assert bench.pinned_points() is None
+    monkeypatch.setenv("VGT_BENCH_MODE", "queued")
+    assert len(bench.pinned_points()) == 4
+    monkeypatch.setenv("VGT_BENCH_GROUP", "2")
+    monkeypatch.setenv("VGT_BENCH_DEPTH", "3")
+    assert bench.pinned_points() == [P("queued", 2, 3)]
+
+
 def test_calibrate_cache_miss_times_every_mode_and_caches(tmp_path):
     path = str(tmp_path / "calib.json")
-    fake = _Fake({"queued": [100], "queued_tuned": [300],
-                  "inline_dual": [200]})
+    fake = _Fake({P("queued", 4, 2): [100], P("queued_tuned", 1, 3): [300],
+                  P("inline_dual", 1, 2): [200]})
     pick = _calibrate(fake, path)
-    assert (pick.mode, pick.rate, pick.runner) == ("queued_tuned", 300,
-                                                   "queued_tuned")
-    assert fake.made == list(bench.MODES)
+    want = P("queued_tuned", 1, 3)
+    assert (pick.point, pick.mode, pick.rate, pick.runner) == (
+        want, "queued_tuned", 300, want)
+    assert fake.made == ALL
     cal = json.load(open(path))
     assert cal == dict(key="card|512|4096", mode="queued_tuned",
-                       calib_rate=300, device_rate=1000.0)
+                       group_size=1, pipeline_depth=3, calib_rate=300,
+                       device_rate=1000.0)
 
 
 def test_calibrate_cache_hit_times_the_cached_mode_only(tmp_path):
     path = str(tmp_path / "calib.json")
-    _write(path, mode="inline_dual", calib_rate=200, device_rate=1000)
-    fake = _Fake({"inline_dual": [190]})
-    assert _calibrate(fake, path).mode == "inline_dual"
-    assert fake.made == ["inline_dual"]
+    _write(path, mode="inline_dual", group_size=1, pipeline_depth=2,
+           calib_rate=200, device_rate=1000)
+    fake = _Fake({P("inline_dual"): [190]})
+    assert _calibrate(fake, path).point == P("inline_dual")
+    assert fake.made == [P("inline_dual")]
     # another key (card, batch or reads) is a miss
-    _write(path, mode="inline_dual", calib_rate=200, device_rate=1000)
-    fake = _Fake({"queued": [100], "queued_tuned": [90],
-                  "inline_dual": [80]})
+    fake = _Fake({P("queued", 4, 2): [100]})
     assert bench.calibrate(fake.make, fake.time_pass, fake.probe, path,
-                           "other|512|4096").mode == "queued"
-    assert fake.made == list(bench.MODES)
+                           "other|512|4096").point == P("queued", 4, 2)
+    assert fake.made == ALL
+
+
+def test_calibrate_file_without_pipeline_knobs_recalibrates(tmp_path):
+    """A calibration written before the knobs were calibrated names a
+    mode only: it is no cache hit, and the new file has both knobs."""
+    path = str(tmp_path / "calib.json")
+    _write(path, mode="queued", calib_rate=200, device_rate=1000)
+    fake = _Fake({P("queued", 2, 2): [500]})
+    assert _calibrate(fake, path).point == P("queued", 2, 2)
+    assert fake.made == ALL
+    cal = json.load(open(path))
+    assert (cal["group_size"], cal["pipeline_depth"]) == (2, 2)
 
 
 def test_calibrate_rechecks_an_outlier(tmp_path):
-    # queued_tuned reads 40 (< half of 100) once, then 150: re-timed, kept
-    fake = _Fake({"queued": [100], "queued_tuned": [40, 150],
-                  "inline_dual": [90]})
+    # a point reads 40 (< half of 100) once, then 150: re-timed, kept
+    odd = P("queued_tuned", 2, 2)
+    fake = _Fake({P("queued", 4, 2): [100], odd: [40, 150]})
     pick = _calibrate(fake, str(tmp_path / "calib.json"))
-    assert (pick.mode, pick.rate) == ("queued_tuned", 150)
-    assert fake.rates["queued_tuned"] == []
+    assert (pick.point, pick.rate) == (odd, 150)
+    assert fake.rates[odd] == []
 
 
 def test_calibrate_device_probe_guard_keeps_the_cache(tmp_path):
     path = str(tmp_path / "calib.json")
-    _write(path, mode="queued", calib_rate=1000, device_rate=5000)
+    _write(path, mode="queued", group_size=1, pipeline_depth=2,
+           calib_rate=1000, device_rate=5000)
     before = open(path).read()
     # the cached winner at 0.5 x its recorded rate, and the device probe at
     # 0.5 x its own: the card is shared, so no re-calibration
-    fake = _Fake({"queued": [500]}, probe=2500)
+    fake = _Fake({P("queued"): [500]}, probe=2500)
     pick = _calibrate(fake, path)
-    assert pick.mode == "queued" and fake.made == ["queued"]
+    assert pick.point == P("queued") and fake.made == [P("queued")]
     assert open(path).read() == before
 
 
 def test_calibrate_recalibrates_a_regressed_winner(tmp_path):
     path = str(tmp_path / "calib.json")
-    _write(path, mode="queued", calib_rate=1000, device_rate=5000)
+    _write(path, mode="queued", group_size=1, pipeline_depth=2,
+           calib_rate=1000, device_rate=5000)
     # the probe reads as recorded: the choice is stale, not the card busy
-    fake = _Fake({"queued": [500], "queued_tuned": [800],
-                  "inline_dual": [450]}, probe=5000)
+    fake = _Fake({P("queued"): [500], P("queued_tuned", 4, 2): [800]},
+                 probe=5000)
     pick = _calibrate(fake, path)
-    assert pick.mode == "queued_tuned"
-    assert fake.made == ["queued", "queued_tuned", "inline_dual"]
+    assert pick.point == P("queued_tuned", 4, 2)
+    assert fake.made == [P("queued")] + [p for p in ALL if p != P("queued")]
     assert json.load(open(path))["mode"] == "queued_tuned"
 
 
-@pytest.mark.parametrize("forced", [None, "queued"])
+@pytest.mark.parametrize("forced", [None, [P("queued", 4, 2)]])
 def test_calibrate_failing_mode_raises(tmp_path, forced):
-    fake = _Fake({"queued": [100], "queued_tuned": [200],
-                  "inline_dual": [300]}, fail=("queued",))
-    with pytest.raises(RuntimeError, match="queued failed"):
+    fake = _Fake({}, fail=(P("queued", 4, 2),))
+    with pytest.raises(RuntimeError, match="queued G=4 depth=2 failed"):
         _calibrate(fake, str(tmp_path / "calib.json"), forced=forced)
     assert not os.path.exists(tmp_path / "calib.json")
 

@@ -45,16 +45,20 @@ MODULES = [
     "vargeno_tpu_torch.tools.summarize_trace",
     "vargeno_tpu_torch.tools.bench_scaling",
     "vargeno_tpu_torch.tools.bench_scaling_mh",
+    "vargeno_tpu_torch.tools.tune_host_pipeline",
 ]
 
 
-@pytest.mark.parametrize("module", ["all", "chip_smoke", "gpu_tests"])
+@pytest.mark.parametrize("module", ["all", "chip_smoke", "gpu_tests",
+                                    "tune_host_pipeline"])
 def test_port_imports_no_jax(module):
     if module == "all":
         imports = "; ".join(f"import {m}" for m in MODULES)
     elif module == "gpu_tests":   # the card's machine runs them without jax
         imports = ("import sys; sys.path.insert(0, 'tests'); "
                    "import torch_index_share")
+    elif module == "tune_host_pipeline":   # the sweep tool on its own
+        imports = "import vargeno_tpu_torch.tools.tune_host_pipeline"
     else:
         imports = "import chip_smoke"
     code = (f"import sys; {imports}; "

@@ -25,9 +25,9 @@ from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
 from vargeno_tpu_torch.dist.sharding import (Mesh, ShardedGenoRunner,
                                              make_mesh)
 from vargeno_tpu_torch.engine.cohort import CohortRunner
-from vargeno_tpu_torch.engine.geno import (GenoRunner, _encoder,
-                                           _escalate_config, fetch,
-                                           step_vec, unpack_vec)
+from vargeno_tpu_torch.engine.geno import (Fetch, GenoRunner, _encoder,
+                                           _escalate_config, step_vec,
+                                           unpack_vec)
 from vargeno_tpu_torch.index import store
 from vargeno_tpu_torch.io.fastq import iter_read_batches
 
@@ -85,9 +85,9 @@ def test_escalation_matches_jax(tripped):
 
 
 def test_per_shard_stats_aggregate(index):
-    """``_attempt``: ``*_max`` keys take the max over shards, the others the
-    sum; auto-tune sees each key's largest single-shard value; the masks
-    are the shards' in order."""
+    """``_issue`` + ``_settle``: ``*_max`` keys take the max over shards,
+    the others the sum; auto-tune sees each key's largest single-shard
+    value; the masks are the shards' in order."""
     D = 2
     cfg = GenoConfig(**BASE)
     runner = ShardedGenoRunner(index, _mesh(D), cfg)
@@ -95,13 +95,16 @@ def test_per_shard_stats_aggregate(index):
                                     cfg.max_read_len, 4)))
     args = runner._upload(_encoder(4)(b.codes, b.n_kmers), b.qual)
     procs = runner._proc(cfg)
-    _, _, stats, tune, (process, read_ok) = runner._attempt(procs, args,
-                                                            False)
+    _, _, keys, vecs = runner._issue(procs, args, "enc",
+                                     (runner.ref_cnt, runner.alt_cnt))
+    stats, tune, (process, read_ok) = runner._settle(
+        keys, Fetch(vecs).result(), (cfg.batch_reads,))
     rows, masks = [], []
     for r in range(D):
-        _, _, keys, vec = step_vec(procs[r], args[r], False,
+        _, _, keys, vec = step_vec(procs[r], args[r], "enc",
                                    runner.ref_cnt[r], runner.alt_cnt[r])
-        row, m = unpack_vec(fetch([vec])[0], keys, cfg.batch_reads)
+        row, m = unpack_vec(Fetch([vec]).result()[0], keys,
+                            cfg.batch_reads)
         rows.append(row)
         masks.append(m)
     for k in keys:

@@ -286,11 +286,11 @@ runner = multihost.MultiHostGenoRunner(store.load(prefix), mesh,
                                        GenoConfig(batch_reads=256,
                                                   max_read_len=128,
                                                   max_kmers_per_read=4))
-run_batch = runner.run_batch
+dispatch = runner._dispatch
 def paced(*a, **k):   # a leg to be killed leaves the killer time
     time.sleep(float(pace))
-    return run_batch(*a, **k)
-runner.run_batch = paced
+    return dispatch(*a, **k)
+runner._dispatch = paced
 runner.consume_fastq(FQ, checkpoint_path=ck or None, checkpoint_every=2)
 runner.write_vcf(VCF, out)
 multihost.shutdown(cluster)

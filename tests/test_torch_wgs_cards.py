@@ -56,11 +56,11 @@ def counted(*a):
     vote.vote_scan_records.launches += 1
     return plain(*a)
 vote.vote_scan_records_plain = counted
-run_batch = MultiHostDictGenoRunner.run_batch
+dispatch = MultiHostDictGenoRunner._dispatch
 def paced(self, *a, **k):
     time.sleep(0.1)
-    return run_batch(self, *a, **k)
-MultiHostDictGenoRunner.run_batch = paced
+    return dispatch(self, *a, **k)
+MultiHostDictGenoRunner._dispatch = paced
 for name, value in json.loads(sys.argv[3]).items():
     setattr(chip_smoke, name, value)
 flag, spec = sys.argv[1], json.loads(sys.argv[2])

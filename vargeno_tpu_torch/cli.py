@@ -8,6 +8,7 @@
       [--no-stride-bug]
       [--checkpoint PATH] [--limit-batches N] [--metrics PATH]
       [--no-auto-tune] [--inline-dual] [capacity flags]
+      [--group-size G] [--pipeline-depth N] [--no-pre-encode]
       [--multihost HOST:PORT --num-processes P --process-id I
        [--dist-backend nccl|gloo] [--local-devices DEV[,DEV...]]]
   python -m vargeno_tpu_torch.cli cohort <prefix> <snps.vcf> <out_{sample}.vcf>
@@ -23,6 +24,12 @@ when there is none; the host runs them only with ``--device cpu``. ``--mesh
 N`` runs on GPUs 0 .. N-1 and stops with an error when fewer are visible;
 with ``--device cpu`` its N shards all run on the host. The index-side
 subcommands, ``oracle-geno`` and ``kmerc`` are host code.
+
+``geno`` keeps ``--pipeline-depth`` batches in flight (default 2, as the
+JAX package), each synced by a fetch worker thread; ``--group-size G``
+issues G pre-encoded sub-batches a dispatch; ``--no-pre-encode`` ships base
+codes that the step encodes on the device (a mesh always ships encoded
+words). Results are the same at every setting.
 
 ``geno --multihost`` is one process of a multi-process run: start the same
 command once for every process id 0 .. P-1. ``--mesh D`` is then the global
@@ -75,6 +82,15 @@ def _add_engine_flags(p):
                    help="disable runtime capacity auto-tuning (by default "
                         "lane capacities shrink to measured maxima after a "
                         "few batches)")
+    h = p.add_argument_group("host dispatch pipeline")
+    h.add_argument("--group-size", type=int, default=None,
+                   help="sub-batches scanned per device dispatch "
+                        "(amortizes dispatch-link latency)")
+    h.add_argument("--pipeline-depth", type=int, default=None,
+                   help="in-flight dispatches kept by the host loop")
+    h.add_argument("--no-pre-encode", action="store_true",
+                   help="ship raw base codes instead of host-packed "
+                        "kmer words")
 
 
 def _config(args, fastqs):
@@ -94,10 +110,12 @@ def _config(args, fastqs):
               replicate_stride_bug=not args.no_stride_bug)
     for f in ("events_per_read", "candidates_per_read", "neighbor_item_frac",
               "probe_hit_cap", "agree_cap", "scan_slot_cap",
-              "auto_retry_max"):
+              "auto_retry_max", "group_size", "pipeline_depth"):
         v = getattr(args, f)
         if v is not None:
             kw[f] = v
+    if args.no_pre_encode:
+        kw["pre_encode"] = False
     return GenoConfig(**kw)
 
 

@@ -1,6 +1,8 @@
 """Jax-free copy of ``vargeno_tpu/config.py``, holding only the fields the
-port reads (the JAX package's Pallas and dispatch-pipeline knobs come back
-with the features that read them).
+port reads (the JAX package's Pallas knobs and its retired prefilter's are
+left out; the host dispatch pipeline's -- ``pre_encode``,
+``pipeline_depth``, ``group_size`` -- are here, read by
+``engine/geno.py``).
 
 Runtime configuration of index build and genotyping.
 
@@ -122,6 +124,21 @@ class GenoConfig:
                                    # is re-run with the tripped caps doubled
                                    # (0 disables; results then may diverge
                                    # from the reference on overflow)
+    pre_encode: bool = True        # host-side kmer packing in queued mode:
+                                   # dispatch ships (hi, lo) u32 words +
+                                   # masks (~1.3 MB/32K batch) instead of
+                                   # (B, L) u8 codes (~4.2 MB) -- matters on
+                                   # tunneled/high-latency dispatch links
+    pipeline_depth: int = 2        # in-flight device batches in the host
+                                   # dispatch loop (1 = classic double
+                                   # buffering; deeper hides dispatch-link
+                                   # latency at the cost of delayed retry
+                                   # queueing -- results are identical)
+    group_size: int = 1            # sub-batches scanned per device dispatch
+                                   # (queued + pre_encode mode): one host
+                                   # round trip / stats sync per GROUP --
+                                   # the lever for high-latency (tunneled)
+                                   # dispatch links; results are identical
     ht_target_load: float = 0.24   # combined exact-lookup table bucket load
                                    # factor (engine.device_index): 0.24
                                    # makes the probe chain 1 on most

@@ -21,8 +21,9 @@ shards: process p holds global shard ranks p*local_D .. (p+1)*local_D - 1.
   stats row over the control group, so every process sees every shard's
   row and takes the same escalation and auto-tune decisions, and so makes
   the same collectives in the same order.
-- Queued orientation (the default) is LOCKSTEP QUEUED RETRY: forward
-  batches run one orientation; retry batches are scheduled from a
+- Queued orientation (the default) is LOCKSTEP QUEUED RETRY, with
+  ``pipeline_depth`` batches in flight: forward batches run one
+  orientation; retry batches are scheduled from a
   per-process pending vector derived from the replicated per-shard
   ``retry_n`` stat alone, so every process fires them at the same loop
   points. A process fills its rows of a retry batch from its own queue
@@ -30,7 +31,11 @@ shards: process p holds global shard ranks p*local_D .. (p+1)*local_D - 1.
   order-independent sums) and pads the rest; a local queue that disagrees
   with the replicated count is a desync error. With
   ``queued_orientation=False`` every batch runs both orientations in one
-  step (GenoRunner's dual loop over the stripes).
+  step (GenoRunner's dual loop over the stripes, ``pipeline_depth`` of
+  them in flight). A batch is finalized when more than ``pipeline_depth``
+  are in flight, a decision on counts alone: the per-attempt stats
+  all-gather and the routed step's exchange then meet in the same order
+  in every process.
 - Per-site counts stay per shard and are summed over the control group in
   ``host_counts``. Checkpoints hold the merged counts and the global read
   count, in the single-process file format: process 0 writes them and a
@@ -43,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import zlib
+from collections import deque
 from typing import Sequence
 
 import numpy as np
@@ -161,7 +167,6 @@ class _MultiHostMixin:
         if not isinstance(mesh, ProcessMesh):
             raise TypeError("a multi-process runner needs a ProcessMesh")
         self.cluster = mesh.cluster
-        self.n_retry_batches = 0   # lockstep retry batches dispatched
         self._rows: list = []      # every shard's stats row, last attempt
         super().__init__(index, mesh, config, **kw)
 
@@ -222,20 +227,36 @@ class _MultiHostMixin:
             self.cluster.rank, cfg.max_read_len, cfg.max_kmers_per_read,
             skip_reads=skip)
 
+    def _dual_depth(self) -> int:
+        return max(1, self.config.pipeline_depth)
+
     def _consume_queued(self, fastq_path, skip, limit_batches,
                         checkpoint_path, checkpoint_every):
-        """Lockstep queued retry. ``pend[p]`` is process p's count of
+        """Lockstep queued retry with ``pipeline_depth`` batches in flight
+        (JAX ``_consume_queued_mh``). ``pend[p]`` is process p's count of
         queued reverse complements, identical on every process because it
-        is summed from the replicated ``retry_n`` rows only; a retry batch
-        fires wherever some process has a whole batch of them (and at a
-        checkpoint and the end, until all are done). ``limit_batches``
-        counts forward batches."""
+        is summed from the replicated ``retry_n`` rows of finalized
+        forward batches only; a retry batch fires wherever some process
+        has a whole batch of them (and at a checkpoint and the end, until
+        all are done). Every finalize decision depends on counts alone
+        (``len(inflight) > depth``), never on whether a batch has landed
+        here, so every process makes the same collectives in the same
+        order. Groups are not formed (as in JAX). ``limit_batches`` counts
+        forward batches."""
         P, me, L = self.cluster.size, self.cluster.rank, self.local_D
         LB = self._loop_batch()
+        depth = max(1, self.config.pipeline_depth)
         batches, encode = self._batches(fastq_path, skip)
         pend = np.zeros(P, np.int64)
         queue: list = []   # this process's (codes, n_kmers, qual) segments
+        inflight: deque = deque()
         nb = 0
+
+        def launch(enc, qual, count, host):
+            p = self._dispatch("enc", self._upload(enc, qual))
+            p["count"] = count
+            p["host"] = host
+            inflight.append(p)
 
         def dispatch_retry():
             take = np.minimum(pend, LB)
@@ -248,29 +269,39 @@ class _MultiHostMixin:
             pend[:] -= take
             self.n_retry_reads += int(take.sum())
             self.n_retry_batches += 1
-            self.run_batch(encode(codes, nk), qual)
-            self.meter.bump(0)
+            launch(encode(codes, nk), qual, 0, None)
+
+        def finalize_one():
+            p = inflight.popleft()
+            process, read_ok = self._finalize(p)
+            self.meter.bump(p["count"])
+            if p["host"] is None:
+                return
+            rn = np.asarray([r["retry_n"] for r in self._rows], np.int64)
+            pend[:] += rn.reshape(P, L).sum(axis=1)
+            codes, nk, qual = p["host"]
+            sel = np.flatnonzero((~process) & read_ok & (nk > 0))
+            if sel.size:
+                queue.append(revcomp_select_host(codes, nk, qual, sel))
+            while pend.max() >= LB:
+                dispatch_retry()
 
         def drain():
+            while inflight:
+                finalize_one()
             while pend.max() > 0:
                 dispatch_retry()
+                while inflight:
+                    finalize_one()
 
         with batches as it:
             for batch, enc in it:
                 self.n_reads += batch.global_n_valid
-                process, read_ok = self.run_batch(enc, batch.qual)
-                self.meter.bump(batch.global_n_valid)
+                launch(enc, batch.qual, batch.global_n_valid,
+                       (batch.codes, batch.n_kmers, batch.qual))
                 nb += 1
-                rn = np.asarray([r["retry_n"] for r in self._rows],
-                                np.int64)
-                pend[:] += rn.reshape(P, L).sum(axis=1)
-                sel = np.flatnonzero((~process) & read_ok
-                                     & (batch.n_kmers > 0))
-                if sel.size:
-                    queue.append(revcomp_select_host(
-                        batch.codes, batch.n_kmers, batch.qual, sel))
-                while pend.max() >= LB:
-                    dispatch_retry()
+                while len(inflight) > depth:
+                    finalize_one()
                 if checkpoint_path and nb % checkpoint_every == 0:
                     drain()   # a checkpoint holds no queued reads
                     self._ckpt_save(checkpoint_path)

@@ -12,12 +12,21 @@ devices (port of ``vargeno_tpu/dist/sharding.py``).
   checkpoint time). Per-SNP counts are order-independent sums, so the late
   merge is exact, and a checkpoint holds the merged (n + 1,) layout: a
   single-device checkpoint resumes on a mesh and the other way round.
+- The shards' totals CHAIN through the steps as the single-device
+  runner's do (a list of D tensors each), so batches stay in flight behind
+  unchecked ones and an escalation rewinds every shard to the tripping
+  batch's input totals (``GenoRunner._chain_rewind``). The JAX mesh uses
+  fresh per-batch buffers and a late merge instead; the counts are the
+  same sums either way.
 
 ``ShardedGenoRunner`` subclasses the single-device ``GenoRunner`` and keeps
-its whole host loop (producer-thread encode, queued reverse-complement
-retries or the inline dual step, overflow escalation and redo, auto-tune,
-checkpoints); it overrides the batch size, the count layout and how one
-attempt of a batch is dispatched. The sharded-dictionary runner
+its whole host loop (producer-thread encode, the dispatch pipeline --
+``pipeline_depth`` batches in flight, grouped dispatch -- queued
+reverse-complement retries or the inline dual step, overflow escalation
+and rewind, auto-tune, checkpoints); it overrides the batch size, the
+count layout, the uploads and how one attempt of a batch is issued and
+settled. A mesh always ships pre-encoded words (``pre_encode`` is forced
+on, as in JAX). The sharded-dictionary runner
 (``dist.sharded_dict``) subclasses it and runs its shards in lockstep
 through ``Mesh.run_lockstep``.
 
@@ -31,6 +40,7 @@ check, not a deployment).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import threading
 import time
@@ -42,7 +52,7 @@ import torch
 from ..config import DEFAULT_CONFIG, GenoConfig
 from ..engine.batch import make_batch_processor
 from ..engine.device_index import from_numpy, host_fields
-from ..engine.geno import GenoRunner, fetch, step_vec, unpack_vec, upload
+from ..engine.geno import GenoRunner, step_vec, unpack_vec, upload
 from ..index import store
 from ..kernels.vote import vote_scan_records
 
@@ -192,10 +202,15 @@ class ShardedGenoRunner(GenoRunner):
     [i*B, (i+1)*B) on ``mesh.devices[i]``. Inherits GenoRunner's host
     loop."""
 
+    _producer_upload = False   # rows are split per shard from host arrays
+
     def __init__(self, index: store.VarGenoIndex, mesh: Mesh,
                  config: GenoConfig = DEFAULT_CONFIG,
                  vote=vote_scan_records, queued_orientation: bool = True,
                  metrics_path: Optional[str] = None):
+        if not config.pre_encode:
+            # the mesh dispatch path ships packed kmer words
+            config = dataclasses.replace(config, pre_encode=True)
         self.mesh = mesh
         self.D = mesh.size   # global shard count
         self.local_D = len(mesh.devices)
@@ -273,14 +288,28 @@ class ShardedGenoRunner(GenoRunner):
                     dtype=np.int32)
         return rc, ac
 
-    def _upload(self, enc, qual, n_kmers=None):
+    def _shard_rows(self, a, r, axis=0):
+        """Shard ``r``'s rows of a host array (None stays None)."""
+        if a is None:
+            return None
         B = self.config.batch_reads
+        return a[(slice(None),) * axis + (slice(r * B, (r + 1) * B),)]
 
-        def part(a, r):
-            return None if a is None else a[r * B:(r + 1) * B]
-        return [upload(dev, tuple(part(a, r) for a in enc), part(qual, r),
-                       part(n_kmers, r))
+    def _upload(self, enc, qual, n_kmers=None):
+        return [upload(dev, tuple(self._shard_rows(a, r) for a in enc),
+                       self._shard_rows(qual, r),
+                       self._shard_rows(n_kmers, r))
                 for r, dev in enumerate(self.mesh.devices)]
+
+    def _upload_group(self, encs, quals):
+        enc = tuple(np.stack(a) for a in zip(*encs))
+        qual = np.stack(quals)
+        return [upload(dev, tuple(self._shard_rows(a, r, 1) for a in enc),
+                       self._shard_rows(qual, r, 1))
+                for r, dev in enumerate(self.mesh.devices)]
+
+    def _mask_shape(self, kind: str, args):
+        return super()._mask_shape(kind, args[0])
 
     def _merge_rows(self, keys, rows) -> list:
         """The stats rows that the batch's decisions read: here this
@@ -288,28 +317,29 @@ class ShardedGenoRunner(GenoRunner):
         gathers every process's rows (``dist.multihost``)."""
         return rows
 
-    def _attempt(self, procs, args, dual: bool):
-        """Every local shard's step, one packed vector each, fetched
-        together. Stats over every shard's row (``_merge_rows``):
-        ``*_max`` keys take the max over shards, the rest the sum;
-        auto-tune reads each key's largest single-shard value (capacities
-        are per-shard shapes)."""
+    def _issue(self, procs, args, kind: str, totals):
+        """Every local shard's step from its own totals, one packed vector
+        each."""
         outs = self._run_shards([
-            functools.partial(step_vec, procs[r], args[r], dual,
-                              self.ref_cnt[r], self.alt_cnt[r])
+            functools.partial(step_vec, procs[r], args[r], kind,
+                              totals[0][r], totals[1][r])
             for r in range(self.local_D)])
-        keys = outs[0][2]
-        B = None if dual else self.config.batch_reads
-        rows, masks = zip(*(unpack_vec(v, keys, B)
-                            for v in fetch([o[3] for o in outs])))
+        return ([o[0] for o in outs], [o[1] for o in outs], outs[0][2],
+                [o[3] for o in outs])
+
+    def _settle(self, keys, vals, shape):
+        """Stats over every shard's row (``_merge_rows``): ``*_max`` keys
+        take the max over shards, the rest the sum; auto-tune reads each
+        key's largest single-shard value (capacities are per-shard
+        shapes); the masks are the shards' rows side by side."""
+        rows, masks = zip(*(unpack_vec(v, keys, shape) for v in vals))
         rows = self._merge_rows(keys, list(rows))
         stats = {k: (max(r[k] for r in rows) if k.endswith("_max")
                      else sum(r[k] for r in rows)) for k in keys}
         tune = {k: max(r[k] for r in rows) for k in keys}
-        if not dual:
-            masks = (np.concatenate([m[0] for m in masks]),
-                     np.concatenate([m[1] for m in masks]))
+        if shape is not None:
+            masks = tuple(np.concatenate([m[i] for m in masks], axis=-1)
+                          for i in range(2))
         else:
             masks = None
-        return ([o[0] for o in outs], [o[1] for o in outs], stats, tune,
-                masks)
+        return stats, tune, masks

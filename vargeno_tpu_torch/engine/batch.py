@@ -598,6 +598,35 @@ class BatchProcessor:
         _backend_stats(be, stats)
         return ref_cnt, alt_cnt, res["process"], res["read_ok"], stats
 
+    def single(self, codes, n_kmers, qual, ref_cnt, alt_cnt):
+        """``single_enc`` from (B, L) uint8 base codes, encoded on the
+        device (the runner's codes path, ``pre_encode=False``)."""
+        enc = encode_batch(codes, n_kmers, self.shapes.K)
+        return self.single_enc(*enc, qual, ref_cnt, alt_cnt)
+
+    def multi_enc(self, hi, lo, kvalid, read_ok, qual, ref_cnt, alt_cnt):
+        """Grouped dispatch: G pre-encoded sub-batches, (G, B, ...) stacks,
+        issued back to back as G ``single_enc`` steps on one stream with
+        the counts chained through them, so they add up as G sequential
+        steps would. Stats reduce over the group (``*_max`` keys take the
+        max, the rest the sum); the masks come back as (G, B). The input
+        accumulators are left untouched (a redo rewinds to them).
+        Returns (ref_cnt, alt_cnt, process, read_ok, stats)."""
+        procs, oks, rows = [], [], []
+        for g in range(hi.shape[0]):
+            ref_cnt, alt_cnt, process, rok, stats = self.single_enc(
+                hi[g], lo[g], kvalid[g], read_ok[g], qual[g], ref_cnt,
+                alt_cnt)
+            procs.append(process)
+            oks.append(rok)
+            rows.append(stats)
+        stats = {}
+        for k in rows[0]:
+            col = torch.stack([torch.as_tensor(r[k]) for r in rows])
+            stats[k] = col.max() if k.endswith("_max") else col.sum()
+        return (ref_cnt, alt_cnt, torch.stack(procs), torch.stack(oks),
+                stats)
+
     # ------------------------------------------------------------------
     def dual_enc(self, hi, lo, kvalid, read_ok, n_kmers, qual, ref_cnt,
                  alt_cnt):

@@ -8,23 +8,35 @@ the reads that fail are queued, reverse-complemented, into later batches
 runs both orientations inline in one dual step. Counts are
 order-independent, so the two give the same result.
 
-The host loop is in order: encode a batch (native packing, in a producer
-thread), dispatch its step, sync ONE packed vector [stats | process bits |
-read_ok bits] with a pinned non-blocking device-to-host copy, and then
-either accept the batch's counts or -- when a capacity counter overflowed
--- double the tripped capacities and redo the batch from the totals it
-started with. With ``auto_tune`` the runner shrinks the lane capacities to
-the maxima it measured over the first ``tune_batches`` batches; a
-checkpoint (pileup counts + read offset) is written only at a batch
-boundary with the retry queue drained, so a resumed run reproduces an
-uninterrupted one exactly.
+The host loop (JAX ``_consume_queued``) keeps ``pipeline_depth`` batches
+in flight. A producer thread parses and encodes each batch (and, at
+group size 1 on one device, uploads it over a side stream); the main
+thread dispatches its step on the running totals and gets back a handle:
+the totals it started from, and ONE packed vector [stats | process bits |
+read_ok bits] on its way to a pinned host buffer of its own (``Fetch``),
+which a fetch worker thread waits for. A batch is finalized once more
+than ``pipeline_depth`` are in flight and its vector has landed: its
+overflow counters are read, and when a capacity overflowed the tripped
+capacities are doubled and the batch and every later in-flight batch are
+redone from the totals it started at (``_chain_rewind``); then its failed
+reads are queued. With ``group_size`` G > 1, G pre-encoded sub-batches go
+as one grouped dispatch (``BatchProcessor.multi_enc``); with
+``pre_encode`` off the base codes go and the step encodes them. With
+``auto_tune`` the runner shrinks the lane capacities to the maxima it
+measured over the first ``tune_batches`` batches. A checkpoint (pileup
+counts + read offset) is written only with nothing staged, in flight or
+queued, so a resumed run reproduces an uninterrupted one exactly, and
+every knob gives the same counts.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import queue
+import threading
 import warnings
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -38,7 +50,7 @@ from ..index import store
 from ..io.fastq import iter_read_batches, prefetch
 from ..io.vcf_writer import write_calls_vcf
 from ..kernels.vote import vote_scan_records
-from ..utils.profiling import Meter
+from ..utils.profiling import Meter, StageTimer
 from . import checkpoint as ckpt
 from .autotune import TUNE_KEYS, tuned_config
 from .batch import make_batch_processor
@@ -123,28 +135,33 @@ def revcomp_select_host(codes, nk, qual, sel):
 
 
 def _bits(mask: torch.Tensor) -> torch.Tensor:
-    """(B,) bool -> (ceil(B/32),) int64 words, bit j of word w = lane
-    32w + j."""
-    pad = (-mask.shape[0]) % 32
-    m = torch.nn.functional.pad(mask.long(), (0, pad)).reshape(-1, 32)
-    return (m << torch.arange(32, device=mask.device)).sum(1)
+    """(..., B) bool -> the (..., ceil(B/32)) int64 words flattened, bit j
+    of word w of a row = lane 32w + j."""
+    pad = (-mask.shape[-1]) % 32
+    m = torch.nn.functional.pad(mask.long(), (0, pad))
+    m = m.reshape(*mask.shape[:-1], -1, 32)
+    return (m << torch.arange(32, device=mask.device)).sum(-1).reshape(-1)
 
 
-def _unbits(words: np.ndarray, n: int) -> np.ndarray:
-    full = (words[:, None] >> np.arange(32)) & 1
-    return full.reshape(-1)[:n].astype(bool)
+def _unbits(words: np.ndarray, shape) -> np.ndarray:
+    """Inverse of ``_bits``: a bool array of ``shape`` (an int is (n,))."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    full = ((words[:, None] >> np.arange(32)) & 1).astype(bool)
+    return full.reshape(*shape[:-1], -1)[..., :shape[-1]]
+
+
+def _words(dev, a) -> torch.Tensor:
+    """Host uint32 words as int64 on ``dev``."""
+    t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+    return t.to(dev).long() & M32
 
 
 def upload(dev, enc, qual, n_kmers=None) -> list:
-    """A pre-encoded host batch as the step's arguments on ``dev``: (hi,
-    lo) as int64 words, the masks, [n_kmers,] qual."""
+    """A pre-encoded host batch -- or a (G, B, ...) stack of them -- as the
+    step's arguments on ``dev``: (hi, lo) as int64 words, the masks,
+    [n_kmers,] qual."""
     hi, lo, kv, rok = enc
-
-    def words(a):
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-        return t.to(dev).long() & M32
-
-    args = [words(hi), words(lo), torch.from_numpy(kv).to(dev),
+    args = [_words(dev, hi), _words(dev, lo), torch.from_numpy(kv).to(dev),
             torch.from_numpy(rok).to(dev)]
     if n_kmers is not None:   # the dual step derives the reverse pass
         args.append(torch.from_numpy(np.ascontiguousarray(n_kmers)).to(dev))
@@ -152,51 +169,113 @@ def upload(dev, enc, qual, n_kmers=None) -> list:
     return args
 
 
-def step_vec(proc, args, dual: bool, ref_cnt, alt_cnt):
-    """Dispatch one step; returns (ref_cnt, alt_cnt, stat keys, vec) with
-    the stats and -- single orientation -- the (process, read_ok) bit words
-    packed into ONE device vector, so a batch syncs the host once."""
-    if dual:
-        rc, ac, stats = proc.dual_enc(*args, ref_cnt, alt_cnt)
+# the processor method each kind of dispatch runs
+STEPS = dict(dual="dual_enc", enc="single_enc", codes="single",
+             group="multi_enc")
+
+
+def step_vec(proc, args, kind: str, ref_cnt, alt_cnt):
+    """Dispatch one step of ``kind`` (a key of STEPS); returns (ref_cnt,
+    alt_cnt, stat keys, vec) with the stats and -- every kind but the dual
+    step -- the (process, read_ok) bit words packed into ONE device
+    vector, so a batch syncs the host once."""
+    out = getattr(proc, STEPS[kind])(*args, ref_cnt, alt_cnt)
+    if kind == "dual":
+        rc, ac, stats = out
         masks = []
     else:
-        rc, ac, process, read_ok, stats = proc.single_enc(*args, ref_cnt,
-                                                          alt_cnt)
+        rc, ac, process, read_ok, stats = out
         masks = [_bits(process), _bits(read_ok)]
     keys = sorted(stats)
     return rc, ac, keys, torch.cat([torch.stack([stats[k] for k in keys])]
                                    + masks)
 
 
-def fetch(vecs) -> list:
-    """Device vectors -> numpy, with one pinned non-blocking copy each and
-    one wait per device."""
-    hosts, done = [], {}
-    for v in vecs:
-        if v.device.type != "cuda":
-            hosts.append(v)
-            continue
-        h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-        h.copy_(v, non_blocking=True)
-        hosts.append(h)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(v.device))
-        done[v.device] = ev
-    for ev in done.values():
-        ev.synchronize()
-    return [h.numpy() for h in hosts]
+class Fetch:
+    """The host copy of one dispatch's packed vectors: a pinned buffer of
+    its own and a CUDA event for each, the non-blocking copy started when
+    the step is issued. ``wait`` blocks until the copies have landed (the
+    fetch worker calls it off the dispatch thread); ``result`` returns
+    the numpy vectors, or raises what the wait raised. Host tensors are
+    taken as they are."""
+
+    def __init__(self, vecs):
+        self.hosts, self.events = [], []
+        for v in vecs:
+            ev = None
+            if v.device.type == "cuda":
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(v.device))
+                v = h
+            self.hosts.append(v)
+            self.events.append(ev)
+        self.done = threading.Event()
+        self._lock = threading.Lock()
+        self._vals = self._err = None
+
+    @property
+    def landed(self) -> bool:
+        return self.done.is_set()
+
+    def wait(self) -> None:
+        with self._lock:
+            if self.done.is_set():
+                return
+            try:
+                for ev in self.events:
+                    if ev is not None:
+                        ev.synchronize()
+                self._vals = [h.numpy() for h in self.hosts]
+            except Exception as e:  # noqa: BLE001 - raised by result()
+                self._err = e
+            self.done.set()
+
+    def result(self) -> list:
+        self.wait()
+        if self._err is not None:
+            raise self._err
+        return self._vals
 
 
-def unpack_vec(vals: np.ndarray, keys, B: Optional[int]):
+class FetchWorker:
+    """A thread that waits for submitted fetches in FIFO order -- the
+    pipeline's finalize order -- so the dispatch thread never blocks on a
+    batch that has not landed (JAX ``_start_fetch_worker``)."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="vgt-fetch")
+        self._t.start()
+
+    def _run(self) -> None:
+        while True:
+            f = self._q.get()
+            if f is None:
+                return
+            f.wait()
+
+    def submit(self, f: Fetch) -> None:
+        self._q.put(f)
+
+    def stop(self) -> None:
+        self._q.put(None)
+        self._t.join(timeout=5)
+
+
+def unpack_vec(vals: np.ndarray, keys, shape):
     """(stats row, masks) of a fetched step vector; masks = the (process,
-    read_ok) bool arrays of a single-orientation step of B reads, else
-    None."""
+    read_ok) bool arrays of ``shape`` ((B,), or (G, B) for a group), None
+    for the dual step (``shape`` None)."""
     srow = dict(zip(keys, vals[:len(keys)].tolist()))
-    if B is None:
+    if shape is None:
         return srow, None
-    nw = (B + 31) // 32
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    nw = int(np.prod(shape[:-1], dtype=np.int64)) * ((shape[-1] + 31) // 32)
     bits = vals[len(keys):]
-    return srow, (_unbits(bits[:nw], B), _unbits(bits[nw:], B))
+    return srow, (_unbits(bits[:nw], shape), _unbits(bits[nw:], shape))
 
 
 def reads_of(batch) -> int:
@@ -214,6 +293,12 @@ def _encoder(K: int):
     return lambda c, k: np_encode_batch(c, k, K)
 
 
+def _index_of(handles: list, p: dict) -> int:
+    """Position of ``p`` in ``handles`` by identity (handles hold tensors,
+    which ``==`` cannot compare)."""
+    return next(i for i, q in enumerate(handles) if q is p)
+
+
 class GenoRunner:
     """Single-device geno on a torch device (``cuda`` by default; ``cpu``
     only when asked for).
@@ -223,7 +308,17 @@ class GenoRunner:
     ``False`` runs both orientations of every batch inline (twice the
     device work a batch, the same counts). ``vote`` replaces the vote
     implementation (the kernel wrapper by default); ``metrics_path`` is
-    where ``meter.emit()`` appends its jsonl throughput line."""
+    where ``meter.emit()`` appends its jsonl throughput line.
+
+    Chained accumulation: the running totals go straight through each step
+    as its accumulator inputs, and its outputs become the new totals, so a
+    batch dispatched behind an unchecked one builds on that one's counts.
+    An overflow REWINDS to the tripping batch's input totals and
+    re-dispatches it and every later in-flight batch in order
+    (``_chain_rewind``), so the rebuilt chain holds every batch once. No
+    step writes its accumulators in place (``pileup_accumulate``)."""
+
+    _producer_upload = True   # G = 1 queued batches upload off-thread
 
     def __init__(self, index: store.VarGenoIndex,
                  config: GenoConfig = DEFAULT_CONFIG,
@@ -248,11 +343,20 @@ class GenoRunner:
         self.stats_totals: dict = {}
         self.n_reads = 0
         self.n_retry_reads = 0   # reads re-run reverse-complemented
+        self.n_retry_batches = 0   # batches of them dispatched
         self.n_escalations = 0   # batch redos after an overflow
+        self.n_rewinds = 0       # later in-flight batches an escalation
+                                 # re-dispatched
+        self._inflight: list = []   # dispatched handles, dispatch order
+        self._worker: Optional[FetchWorker] = None   # while a loop runs
+        self._up_stream = None   # the producer thread's upload stream
         self._tune_max: dict = {}   # per-batch telemetry maxima
         self._tune_seen = 0
         self._tuned = not config.auto_tune
         self.meter = Meter(metrics_path)
+        # the host loop's main-thread seconds by stage (read_batch,
+        # dispatch, finalize_wait, enqueue_retry)
+        self.timer = StageTimer(sync=False)
 
     def _proc(self, cfg: GenoConfig):
         proc = self._procs.get(cfg)
@@ -262,8 +366,8 @@ class GenoRunner:
         return proc
 
     # --- hooks a mesh runner overrides (dist.sharding): the reads of one
-    # host-loop batch, the count layout, and how one attempt of a batch is
-    # dispatched and synced ---
+    # host-loop batch, the count layout, the uploads, and how one attempt
+    # of a batch is issued and settled ---
 
     def _loop_batch(self) -> int:
         """Reads per host-loop batch (a mesh runner's is D x batch)."""
@@ -284,43 +388,148 @@ class GenoRunner:
     def _upload(self, enc, qual, n_kmers=None):
         return upload(self.device, enc, qual, n_kmers)
 
-    def _attempt(self, proc, args, dual: bool):
-        """Dispatch one attempt of a batch and sync its one packed vector.
-        Returns (ref_cnt, alt_cnt, stats, tune_stats, masks): the new
-        totals, the stats row, the values auto-tune reads, and the host
-        (process, read_ok) masks (None for the dual step)."""
-        rc, ac, keys, vec = step_vec(proc, args, dual, self.ref_cnt,
-                                     self.alt_cnt)
-        srow, masks = unpack_vec(fetch([vec])[0], keys,
-                                 None if dual else args[0].shape[0])
-        return rc, ac, srow, srow, masks
+    def _upload_group(self, encs, quals):
+        """G pre-encoded sub-batches as one (G, B, ...) stack."""
+        return upload(self.device,
+                      tuple(np.stack(a) for a in zip(*encs)),
+                      np.stack(quals))
 
-    def run_batch(self, enc, qual, n_kmers=None):
-        """Run one pre-encoded batch to an overflow-free (or retry-capped)
-        attempt, then commit its counts. Without ``n_kmers`` it is one
-        orientation, and the host (process, read_ok) masks come back for
-        the retry queue; with ``n_kmers`` (each read's k-mer count) it is
-        the dual step, which returns None."""
-        dual = n_kmers is not None
-        args = self._upload(enc, qual, n_kmers)
-        rounds = 0
+    def _upload_codes(self, codes, n_kmers, qual):
+        """A host batch of (B, L) base codes as the codes step's
+        arguments."""
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (codes, n_kmers, qual)]
+
+    def _upload_async(self, enc, qual):
+        """(args, event): a batch uploaded from the producer thread. On a
+        card the copies run on a side stream, and ``_adopt`` makes the
+        compute stream wait for them."""
+        if self.device.type != "cuda":
+            return self._upload(enc, qual), None
+        with torch.cuda.device(self.device), \
+                torch.cuda.stream(self._up_stream):
+            args = self._upload(enc, qual)
+            ev = torch.cuda.Event()
+            ev.record(self._up_stream)
+        return args, ev
+
+    def _adopt(self, args, ev):
+        """A producer-thread upload handed to the compute stream: it waits
+        for the copies, and the allocator keeps each tensor until the
+        compute stream is done with it."""
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+            for t in args:
+                t.record_stream(cur)
+        return args
+
+    def _mask_shape(self, kind: str, args):
+        """The (process, read_ok) mask shape of one device's vector."""
+        if kind == "dual":
+            return None
+        return tuple(args[0].shape[:2 if kind == "group" else 1])
+
+    def _issue(self, procs, args, kind: str, totals):
+        """Issue one attempt from the totals ``totals``; nothing is synced.
+        Returns (ref_cnt, alt_cnt, stat keys, packed vectors)."""
+        rc, ac, keys, vec = step_vec(procs, args, kind, *totals)
+        return rc, ac, keys, [vec]
+
+    def _settle(self, keys, vals, shape):
+        """(stats, tune, masks) of an attempt from its fetched vectors:
+        the stats row that escalation reads, the values auto-tune reads,
+        and the host (process, read_ok) masks (None for the dual step)."""
+        srow, masks = unpack_vec(vals[0], keys, shape)
+        return srow, srow, masks
+
+    # --- the dispatch pipeline (JAX ``_dispatch_batch`` /
+    # ``_finalize_batch`` / ``_chain_rewind``) ---
+
+    def _dispatch(self, kind: str, args) -> dict:
+        """Issue a batch (or a group) on the running totals at the current
+        config and return its in-flight handle: the totals it started from
+        (the rewind point), its stat keys and mask shape, and its
+        ``Fetch``, handed to the fetch worker when one runs. The totals
+        move on to its outputs at once."""
+        cfg = self._cfg_run
+        totals = (self.ref_cnt, self.alt_cnt)
+        rc, ac, keys, vecs = self._issue(self._proc(cfg), args, kind,
+                                         totals)
+        p = dict(kind=kind, args=args, cfg=cfg, keys=keys,
+                 shape=self._mask_shape(kind, args), fetch=Fetch(vecs),
+                 totals_in=totals, rounds=0)
+        self.ref_cnt, self.alt_cnt = rc, ac
+        self._inflight.append(p)
+        if self._worker is not None:
+            self._worker.submit(p["fetch"])
+        return p
+
+    def _finalize(self, p: dict):
+        """Settle handle ``p``; while a capacity tripped, escalate and redo
+        it (with every later in-flight batch) from the totals it started
+        at; then commit its stats. Returns its masks."""
         while True:
-            rc, ac, srow, tune, masks = self._attempt(
-                self._proc(self._cfg_run), args, dual)
-            tripped = [k for k, v in srow.items() if "overflow" in k and v]
-            if not tripped or rounds >= self.config.auto_retry_max:
+            stats, tune, masks = self._settle(p["keys"], p["fetch"].result(),
+                                              p["shape"])
+            tripped = [k for k, v in stats.items() if "overflow" in k and v]
+            if not tripped or p["rounds"] >= self.config.auto_retry_max:
                 break
             new_cfg = _escalate_config(self._cfg_run, tripped)
-            if new_cfg == self._cfg_run:
-                break   # caps already at their limits
+            if new_cfg == self._cfg_run and p["cfg"] == self._cfg_run:
+                break   # caps already at their limits for this attempt
+            # a sibling in flight may have escalated _cfg_run past the
+            # config this attempt ran at: then redo at the current one
             self._cfg_run = new_cfg
-            rounds += 1
+            rounds = p["rounds"] + 1
             self.n_escalations += 1
-        self.ref_cnt, self.alt_cnt = rc, ac
-        self._bump(srow)
+            self._chain_rewind(p)
+            p["rounds"] = rounds
+        del self._inflight[_index_of(self._inflight, p)]
+        self._bump(stats)
         if not self._tuned:
             self._maybe_tune(tune)
         return masks
+
+    def _chain_rewind(self, p: dict) -> None:
+        """Restore the totals to before ``p``'s (truncated) contribution,
+        then re-dispatch ``p`` and every LATER in-flight handle in
+        dispatch order, each updated IN PLACE so the loop's deque sees the
+        redone dispatches."""
+        i = _index_of(self._inflight, p)
+        redo = self._inflight[i:]
+        del self._inflight[i:]
+        self.ref_cnt, self.alt_cnt = p["totals_in"]
+        for q in redo:
+            rounds = q["rounds"]
+            q.update(self._dispatch(q["kind"], q["args"]))
+            q["rounds"] = rounds
+            self._inflight[-1] = q
+        self.n_rewinds += len(redo) - 1
+
+    @contextlib.contextmanager
+    def _fetching(self):
+        """A host loop's fetch worker; the in-flight list is empty after
+        it (a loop that raised leaves no handle behind)."""
+        self._worker = FetchWorker()
+        try:
+            yield
+        finally:
+            self._worker.stop()
+            self._worker = None
+            self._inflight.clear()
+
+    def run_batch(self, enc, qual, n_kmers=None):
+        """Run one pre-encoded batch to an overflow-free (or retry-capped)
+        attempt, then commit its counts (dispatch + finalize, nothing else
+        in flight). Without ``n_kmers`` it is one orientation, and the host
+        (process, read_ok) masks come back for the retry queue; with
+        ``n_kmers`` (each read's k-mer count) it is the dual step, which
+        returns None."""
+        dual = n_kmers is not None
+        p = self._dispatch("dual" if dual else "enc",
+                           self._upload(enc, qual, n_kmers))
+        return self._finalize(p)
 
     def _bump(self, stats):
         for k, v in stats.items():
@@ -366,8 +575,9 @@ class GenoRunner:
                 skip = meta["n_reads"]
                 self.n_reads = skip
         consume = self._consume_queued if self.queued else self._consume_dual
-        consume(fastq_path, skip, limit_batches, checkpoint_path,
-                checkpoint_every)
+        with self._fetching():
+            consume(fastq_path, skip, limit_batches, checkpoint_path,
+                    checkpoint_every)
         if checkpoint_path:
             self._ckpt_save(checkpoint_path)
         overflow = {k: v for k, v in self.stats_totals.items()
@@ -398,28 +608,103 @@ class GenoRunner:
 
         return contextlib.closing(prefetch(produce(), depth=3)), encode
 
+    def _dual_depth(self) -> int:
+        """Dual batches kept in flight: one pending behind the newest (JAX
+        GenoRunner's non-queued loop); a multi-process runner keeps
+        ``pipeline_depth``."""
+        return 1
+
     def _consume_dual(self, fastq_path, skip, limit_batches,
                       checkpoint_path, checkpoint_every):
         batches, _ = self._batches(fastq_path, skip)
+        depth = self._dual_depth()
+        inflight: deque = deque()
         nb = 0
+
+        def finalize_one():
+            p = inflight.popleft()
+            self._finalize(p)
+            self.meter.bump(p["count"])
+
         with batches as it:
             for batch, enc in it:
                 self.n_reads += reads_of(batch)
-                self.run_batch(enc, batch.qual, n_kmers=batch.n_kmers)
-                self.meter.bump(reads_of(batch))
+                p = self._dispatch("dual", self._upload(
+                    enc, batch.qual, batch.n_kmers))
+                p["count"] = reads_of(batch)
+                inflight.append(p)
                 nb += 1
+                while len(inflight) > depth:
+                    finalize_one()
                 if checkpoint_path and nb % checkpoint_every == 0:
+                    while inflight:
+                        finalize_one()
                     self._ckpt_save(checkpoint_path)
                 if limit_batches and nb >= limit_batches:
                     break
+        while inflight:
+            finalize_one()
 
     def _consume_queued(self, fastq_path, skip, limit_batches,
                         checkpoint_path, checkpoint_every):
+        """The queued host loop (JAX ``_consume_queued``): up to
+        ``pipeline_depth`` batches in flight (more, up to depth + 6, while
+        the head has not landed), each synced by the fetch worker; failed
+        reads queued from the finalized masks; with ``pre_encode`` groups
+        of ``group_size`` sub-batches a dispatch, else the codes step.
+        Everything staged or in flight is finalized and the retry queue run
+        dry before a checkpoint and at the end."""
+        cfg = self.config
         B = self._loop_batch()
-        batches, encode = self._batches(fastq_path, skip)
+        depth = max(1, cfg.pipeline_depth)
+        hard = depth + 6   # bounds device memory and a rewind's cost
+        encode = _encoder(cfg.max_kmers_per_read) if cfg.pre_encode else None
+        G = max(1, cfg.group_size) if encode is not None else 1
+        st = self.timer
         pend: list = []     # queued (codes, nk, qual) reverse complements
         pend_n = 0
         nb = 0
+        inflight: deque = deque()
+        stage_buf: list = []   # staged (enc, qual, count, host) sub-batches
+
+        def launch(kind, args, count, hosts):
+            p = self._dispatch(kind, args)
+            p["count"] = count
+            p["hosts"] = hosts
+            inflight.append(p)
+
+        def dispatch(codes, nk, qual, count, host, enc=None, args=None):
+            """host = (codes, nk, qual, n_valid) for a forward batch whose
+            failures are re-queued reverse-complemented, None for a retry
+            batch (the reference tries two orientations, qv.cc:1504-1510);
+            ``enc`` / ``args``: the producer thread's encoding / upload."""
+            nonlocal nb
+            self.n_reads += count
+            if host is None:
+                self.n_retry_batches += 1
+            nb += 1
+            if encode is None:
+                launch("codes", self._upload_codes(codes, nk, qual), count,
+                       [host])
+            elif args is not None:
+                launch("enc", args, count, [host])
+            else:
+                stage_buf.append((encode(codes, nk) if enc is None else enc,
+                                  qual, count, host))
+                flush_stage()
+
+        def flush_stage(force=False):
+            """Full groups go as one grouped dispatch; on force, the
+            leftovers go one by one."""
+            while G > 1 and len(stage_buf) >= G:
+                grp = stage_buf[:G]
+                del stage_buf[:G]
+                launch("group", self._upload_group([g[0] for g in grp],
+                                                   [g[1] for g in grp]),
+                       sum(g[2] for g in grp), [g[3] for g in grp])
+            while stage_buf and (force or G == 1):
+                enc, qual, count, host = stage_buf.pop(0)
+                launch("enc", self._upload(enc, qual), count, [host])
 
         def enqueue_failures(codes, nk, qual, n_valid, process, read_ok):
             nonlocal pend_n
@@ -432,46 +717,96 @@ class GenoRunner:
             pend.append(revcomp_select_host(codes, nk, qual, sel))
             pend_n += sel.size
 
+        def pump(force=False):
+            while inflight and (force or len(inflight) > depth):
+                if (not force and len(inflight) <= hard
+                        and not inflight[0]["fetch"].landed):
+                    break   # keep dispatching; the worker flags it landed
+                p = inflight.popleft()
+                with st.stage("finalize_wait"):
+                    process, read_ok = self._finalize(p)
+                self.meter.bump(p["count"])
+                hosts = p["hosts"]
+                if all(h is None for h in hosts):
+                    continue
+                with st.stage("enqueue_retry"):
+                    if p["kind"] != "group":
+                        enqueue_failures(*hosts[0], process, read_ok)
+                        continue
+                    for g, h in enumerate(hosts):   # a group's rows
+                        if h is not None:
+                            enqueue_failures(*h, process[g], read_ok[g])
+
         def flush_pending(force=False):
-            nonlocal pend_n, nb
+            nonlocal pend_n
             while pend_n >= B or (force and pend_n > 0):
                 codes, nk, qual, got = self._take_queued(pend, B)
+                # the queue moves BEFORE pump(): finalizing a forward
+                # batch there may append retries
                 pend_n -= got
-                self.run_batch(encode(codes, nk), qual)
-                self.meter.bump(0)
-                nb += 1
+                dispatch(codes, nk, qual, 0, None)
+                pump()
 
-        with batches as it:
-            for batch, enc in it:
-                self.n_reads += batch.n_valid
-                process, read_ok = self.run_batch(enc, batch.qual)
-                self.meter.bump(batch.n_valid)
-                nb += 1
-                enqueue_failures(batch.codes, batch.n_kmers, batch.qual,
-                                 batch.n_valid, process, read_ok)
+        def drain():
+            # finalize everything staged and in flight, then run the retry
+            # queue dry (finalizing a retry batch never enqueues more)
+            flush_stage(force=True)
+            pump(force=True)
+            flush_pending(force=True)
+            flush_stage(force=True)
+            pump(force=True)
+
+        # G = 1: the producer thread also uploads (JAX ``pre_up``); grouped
+        # staging stacks on the host, and a mesh splits rows per shard
+        pre_up = encode is not None and G == 1 and self._producer_upload
+        if pre_up and self.device.type == "cuda" and self._up_stream is None:
+            self._up_stream = torch.cuda.Stream(self.device)
+
+        def produce():
+            for b in self._read_batches(fastq_path, skip):
+                if encode is None:
+                    yield b, None, None
+                    continue
+                e = encode(b.codes, b.n_kmers)
+                yield b, e, (self._upload_async(e, b.qual) if pre_up
+                             else None)
+
+        with contextlib.closing(prefetch(produce(), depth=3)) as it:
+            while True:
+                with st.stage("read_batch"):
+                    item = next(it, None)
+                if item is None:
+                    break
+                batch, enc, up = item
+                with st.stage("dispatch"):
+                    dispatch(batch.codes, batch.n_kmers, batch.qual,
+                             batch.n_valid,
+                             (batch.codes, batch.n_kmers, batch.qual,
+                              batch.n_valid), enc=enc,
+                             args=None if up is None else self._adopt(*up))
+                pump()
                 flush_pending()
                 if checkpoint_path and nb % checkpoint_every == 0:
-                    # drain first: a checkpoint holds no queued reads
-                    flush_pending(force=True)
+                    drain()   # a checkpoint holds no queued or in-flight read
                     self._ckpt_save(checkpoint_path)
                 if limit_batches and nb >= limit_batches:
                     break
-        flush_pending(force=True)
+        drain()
 
-    def _take_queued(self, queue: list, B: int):
-        """Up to B queued reads off the front of ``queue`` (a list of
+    def _take_queued(self, segs: list, B: int):
+        """Up to B queued reads off the front of ``segs`` (a list of
         (codes, n_kmers, qual) segments, consumed in place), padded with
         empty reads to B rows: (codes, n_kmers, qual, reads taken)."""
         cfg = self.config
         tc, tk, tq = [], [], []
         got = 0
-        while queue and got < B:
-            c0, k0, q0 = queue[0]
+        while segs and got < B:
+            c0, k0, q0 = segs[0]
             need = B - got
             if c0.shape[0] <= need:
-                queue.pop(0)
+                segs.pop(0)
             else:
-                queue[0] = (c0[need:], k0[need:], q0[need:])
+                segs[0] = (c0[need:], k0[need:], q0[need:])
                 c0, k0, q0 = c0[:need], k0[:need], q0[:need]
             tc.append(c0)
             tk.append(k0)

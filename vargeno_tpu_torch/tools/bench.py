@@ -16,9 +16,10 @@ vgt_bench48_torch], ``VGT_BENCH_MB`` [48], ``VGT_BENCH_SNPS`` [500000],
 ``VGT_BENCH_READS`` [262144], ``VGT_BENCH_BATCH`` [32768],
 ``VGT_BENCH_PASSES`` [5], ``VGT_BENCH_CLEAN_FRAC`` [0.96],
 ``VGT_BENCH_MAX_EXTRA`` [6], ``VGT_BENCH_GATHER`` [1; 0 skips the gather
-bench and leaves the lane roofline null], ``VGT_BENCH_MODE`` [unset; names
-one dispatch mode and skips calibration], ``VGT_REF_BINARY``
-[/tmp/refbuild/vargeno].
+bench and leaves the lane roofline null], ``VGT_BENCH_MODE``,
+``VGT_BENCH_GROUP``, ``VGT_BENCH_DEPTH`` [unset; each pins that part of
+the dispatch point, and a pin skips the cached calibration: all three pin
+one point outright], ``VGT_REF_BINARY`` [/tmp/refbuild/vargeno].
 
 The cache directory holds the dataset (``genome.fa``, ``snps.vcf``,
 ``reads.fq``, the marker ``ready`` with the workload it was made for), the
@@ -28,11 +29,14 @@ dispatch-mode calibration (``calib.json``), the card's gather rates
 pass (``bench_counts.npz``: ``ref``, ``alt``; every measured pass must give
 the same ones).
 
-Dispatch modes (calibrated once per card name, batch and read count, the
+Dispatch points (calibrated once per card name, batch and read count, the
 winner cached): queued orientation at the right-sized capacities below, the
-same with auto-tune, and both orientations inline. All give the same
-counts. A mode that fails to build or run fails the bench: nothing falls
-back to another vote or to the host.
+same with auto-tune -- each at the (group_size, pipeline_depth) pairs
+(4, 2), (2, 2), (1, 2), (1, 3) of the JAX bench -- and both orientations
+inline (whose loop keeps one batch pending at any depth). All give the
+same counts. A point that fails to build or run fails the bench: nothing
+falls back to another vote or to the host. A ``calib.json`` without the
+pipeline knobs is calibrated anew.
 
 The rate is the median of the clean full passes when at least 3 are
 clean, else of every pass. Each pass is bracketed by device-rate probes (pre-encoded batches resident on the card,
@@ -70,6 +74,9 @@ ERR_FRAC = 0.15
 INDEX_NAME = "bench"
 # dispatch modes, in calibration order; the first is the default
 MODES = ("queued", "queued_tuned", "inline_dual")
+# (group_size, pipeline_depth) pairs calibrated for the queued modes (the
+# JAX bench's candidates)
+PIPELINES = ((4, 2), (2, 2), (1, 2), (1, 3))
 T0 = time.perf_counter()
 
 
@@ -276,13 +283,66 @@ def bench_config(wl: Workload) -> GenoConfig:
                       probe_hit_cap=6)             # probe lanes 4103
 
 
-def make_runner(index, dix, wl: Workload, mode: str, device):
-    """A GenoRunner of one dispatch mode over the shared device index."""
+@dataclasses.dataclass(frozen=True)
+class Point:
+    """A dispatch point: the mode and the host pipeline's knobs."""
+
+    mode: str
+    group_size: int = 1
+    pipeline_depth: int = DEFAULT_CONFIG.pipeline_depth
+
+    def __str__(self) -> str:
+        return f"{self.mode} G={self.group_size} depth={self.pipeline_depth}"
+
+
+def points(mode: str | None = None, group: int | None = None,
+           depth: int | None = None) -> list:
+    """The calibration candidates, in order, with the pins applied: every
+    queued mode at each PIPELINES pair, inline dual at group 1. A pinned
+    group other than 1 leaves inline dual out."""
+    out = []
+    for m in MODES:
+        if mode is not None and m != mode:
+            continue
+        if m == "inline_dual":
+            if group not in (None, 1):
+                continue
+            pairs = ((1, DEFAULT_CONFIG.pipeline_depth),)
+        else:
+            pairs = PIPELINES
+        for g, d in pairs:
+            p = Point(m, g if group is None else group,
+                      d if depth is None else depth)
+            if p not in out:
+                out.append(p)
+    if not out:
+        raise ValueError(f"no dispatch point fits the pins mode={mode} "
+                         f"group={group} depth={depth}")
+    return out
+
+
+def pinned_points() -> list | None:
+    """The candidates the VGT_BENCH_MODE / _GROUP / _DEPTH pins leave, or
+    None when nothing is pinned."""
+    env = os.environ.get
+    mode, group, depth = (env("VGT_BENCH_MODE"), env("VGT_BENCH_GROUP"),
+                          env("VGT_BENCH_DEPTH"))
+    if mode is None and group is None and depth is None:
+        return None
+    return points(mode, None if group is None else int(group),
+                  None if depth is None else int(depth))
+
+
+def make_runner(index, dix, wl: Workload, mode: str, device,
+                group_size: int = 1,
+                pipeline_depth: int = DEFAULT_CONFIG.pipeline_depth):
+    """A GenoRunner of one dispatch point over the shared device index."""
     from ..engine.geno import GenoRunner
 
     if mode not in MODES:
         raise ValueError(f"unknown dispatch mode {mode!r}; one of {MODES}")
-    cfg = bench_config(wl)
+    cfg = dataclasses.replace(bench_config(wl), group_size=group_size,
+                              pipeline_depth=pipeline_depth)
     if mode == "queued_tuned":
         cfg = dataclasses.replace(cfg, auto_tune=True)
     return GenoRunner(index, cfg, device=device, dix=dix,
@@ -348,46 +408,61 @@ def device_pass(runner, sets: list, reps: int = 1) -> float:
 @dataclasses.dataclass
 class Pick:
     rate: float
-    mode: str
+    point: Point
     runner: object
+
+    @property
+    def mode(self) -> str:
+        return self.point.mode
+
+
+def cached_point(calib_file: str, key: str):
+    """(point, calibration record) cached for ``key``, or (None, None): an
+    older file without the pipeline knobs counts as no calibration."""
+    if not os.path.exists(calib_file):
+        return None, None
+    with open(calib_file) as f:
+        got = json.load(f)
+    if (got.get("key") != key or got.get("mode") not in MODES
+            or not isinstance(got.get("group_size"), int)
+            or not isinstance(got.get("pipeline_depth"), int)):
+        return None, None
+    return Point(got["mode"], got["group_size"], got["pipeline_depth"]), got
 
 
 def calibrate(make, time_pass, probe, calib_file: str, key: str,
-              forced: str | None = None) -> Pick:
-    """Choose the dispatch mode. ``make(mode)`` builds and warms a runner,
-    ``time_pass(runner)`` gives reads/s of one pass, ``probe(runner)`` the
-    device rate. The cached winner for ``key`` is timed alone; a rate under
-    half the running best is re-timed once and the larger kept (one-off
-    transients would otherwise be cached). A cached winner running under
-    0.7 x its recorded rate is re-calibrated, unless a device probe under
-    0.85 x its recorded device rate says the card is shared right now: then
-    the cached choice stays and the file is left alone. Any failure
-    raises."""
-    cal = None
-    if os.path.exists(calib_file):
-        with open(calib_file) as f:
-            got = json.load(f)
-        if got.get("key") == key and got.get("mode") in MODES:
-            cal = got
+              forced: list | None = None) -> Pick:
+    """Choose the dispatch point. ``make(point)`` builds and warms a
+    runner, ``time_pass(runner)`` gives reads/s of one pass,
+    ``probe(runner)`` the device rate. ``forced``: the candidates the pins
+    leave (``pinned_points``), timed whatever the cache holds. Else the
+    cached winner for ``key`` is timed alone, or every point when there is
+    none. A rate under half the running best is re-timed once and the
+    larger kept (one-off transients would otherwise be cached). A cached
+    winner running under 0.7 x its recorded rate is re-calibrated, unless
+    a device probe under 0.85 x its recorded device rate says the card is
+    shared right now: then the cached choice stays and the file is left
+    alone. Any failure raises."""
+    cached, cal = cached_point(calib_file, key)
     if forced is not None:
-        cand = [forced]
-    elif cal is not None:
-        cand = [cal["mode"]]
+        cand = list(forced)
+    elif cached is not None:
+        cand = [cached]
     else:
-        cand = list(MODES)
+        cand = points()
 
-    def measure(modes, best=None):
-        for mode in modes:
-            runner = make(mode)
+    def measure(cands, best=None):
+        for point in cands:
+            runner = make(point)
             rate = time_pass(runner)
             if best is not None and rate < 0.5 * best.rate:
                 rate2 = time_pass(runner)
-                log(f"calib outlier re-check {mode}: {rate:.0f} -> "
+                log(f"calib outlier re-check {point}: {rate:.0f} -> "
                     f"{rate2:.0f}")
                 rate = max(rate, rate2)
-            log(f"calib {mode}: {rate:.0f} reads/s")
+            log(f"calib {point}: {rate:.0f} reads/s")
             if best is None or rate > best.rate:
-                best = Pick(rate, mode, runner)
+                best = Pick(rate, point, runner)
         return best
 
     best = measure(cand)
@@ -403,10 +478,12 @@ def calibrate(make, time_pass, probe, calib_file: str, key: str,
             return best
         log(f"cached winner {best.rate:.0f} << recorded "
             f"{cal['calib_rate']:.0f}; re-calibrating")
-        best = measure([m for m in MODES if m != best.mode], best)
+        best = measure([p for p in points() if p != best.point], best)
     dr0 = probe(best.runner)
     with open(calib_file, "w") as f:
-        json.dump({"key": key, "mode": best.mode,
+        json.dump({"key": key, "mode": best.point.mode,
+                   "group_size": best.point.group_size,
+                   "pipeline_depth": best.point.pipeline_depth,
                    "calib_rate": round(best.rate, 1),
                    "device_rate": round(dr0, 1)}, f)
     return best
@@ -434,7 +511,7 @@ def device_label(device) -> str:
 
 def pick_runner(index, wl: Workload, device):
     """Build the device index once, then the measurement runner of the
-    calibrated dispatch mode. Returns (runner, mode)."""
+    calibrated dispatch point. Returns (runner, point)."""
     from ..engine.device_index import build_device_index
 
     with stage("device tables"):
@@ -442,9 +519,11 @@ def pick_runner(index, wl: Workload, device):
                                  bench_config(wl).ht_target_load)
         sync(device)
 
-    def make(mode):
-        runner = make_runner(index, dix, wl, mode, device)
-        runner.consume_fastq(wl.fq, limit_batches=2)   # warm
+    def make(point):
+        runner = make_runner(index, dix, wl, point.mode, device,
+                             point.group_size, point.pipeline_depth)
+        # warm (a group dispatches from its G-th batch)
+        runner.consume_fastq(wl.fq, limit_batches=2 * point.group_size)
         return runner
 
     def probe(runner):
@@ -452,11 +531,11 @@ def pick_runner(index, wl: Workload, device):
                            reps=2)
 
     key = f"{device_kind(device)}|{wl.batch}|{wl.reads}"
-    with stage("calibrate (warm + one pass a mode)"):
+    with stage("calibrate (warm + one pass a point)"):
         best = calibrate(make, lambda r: timed_pass(r, wl.fq), probe,
                          wl.path("calib.json"), key,
-                         forced=os.environ.get("VGT_BENCH_MODE"))
-    return best.runner, best.mode
+                         forced=pinned_points())
+    return best.runner, best.point
 
 
 def gather_rates(wl: Workload, device):
@@ -520,8 +599,8 @@ def run(wl: Workload, device) -> dict:
     ref_rate = measure_reference(wl)
     with stage("index (load, or build when the cache has none)"):
         index = build_index(wl)
-    runner, mode = pick_runner(index, wl, device)
-    log(f"dispatch mode {mode}")
+    runner, point = pick_runner(index, wl, device)
+    log(f"dispatch point {point}")
 
     clean_frac = float(os.environ.get("VGT_BENCH_CLEAN_FRAC", 0.96))
     max_extra = int(os.environ.get("VGT_BENCH_MAX_EXTRA", 6))
@@ -597,6 +676,9 @@ def run(wl: Workload, device) -> dict:
         # the best probe is the cleanest observation of the step itself
         "device_rate": round(best_probe, 1),
         "retry_frac": round(retry_frac(runner), 3),
+        "mode": point.mode,
+        "group_size": point.group_size,
+        "pipeline_depth": point.pipeline_depth,
     }
     log(f"device_rate: {line['device_rate']} reads/s (retry_frac "
         f"{line['retry_frac']})")

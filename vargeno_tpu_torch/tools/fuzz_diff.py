@@ -55,11 +55,11 @@ def big_scale() -> bool:
 def draw_case(seed: int, big: bool | None = None) -> dict:
     """The case of ``seed`` as ``tools/fuzz_diff.py`` draws it: the
     fixture's ``make_synthetic`` arguments (``synth``), the engine's
-    GenoConfig fields (``config``) and the orientation mode (``queued``).
-    The JAX tool also draws group_size, pipeline_depth and
-    sparse_exact_snp, which the port's GenoConfig lacks: they are drawn in
-    their place and kept apart (``dropped``), so that seed N is the same
-    case in both tools."""
+    GenoConfig fields (``config``, the dispatch pipeline's
+    ``group_size`` and ``pipeline_depth`` among them) and the orientation
+    mode (``queued``). The JAX tool also draws sparse_exact_snp, which the
+    port's GenoConfig lacks: it is drawn in its place and kept apart
+    (``dropped``), so that seed N is the same case in both tools."""
     rng = np.random.default_rng(seed ^ 0xF00D)
     big = big_scale() if big is None else big
     scale = 100 if big else 1
@@ -70,11 +70,12 @@ def draw_case(seed: int, big: bool | None = None) -> dict:
     n_reads = int(rng.integers(200, 1500)) * (1000 if big else 1)
     err = float(rng.choice([0.0, 0.1, 0.3, 0.6]))
     batch_reads = int(rng.choice([64, 256, 509]))
-    dropped = dict(group_size=int(rng.choice([1, 3])),
-                   pipeline_depth=int(rng.choice([1, 2])),
-                   sparse_exact_snp=bool(rng.integers(0, 2)))
+    group_size = int(rng.choice([1, 3]))
+    pipeline_depth = int(rng.choice([1, 2]))
+    dropped = dict(sparse_exact_snp=bool(rng.integers(0, 2)))
     config = dict(batch_reads=batch_reads, max_read_len=128,
-                  max_kmers_per_read=4,
+                  max_kmers_per_read=4, group_size=group_size,
+                  pipeline_depth=pipeline_depth,
                   # low caps exercise the auto-retry escalation path
                   events_per_read=int(rng.choice([16, 96])),
                   agree_cap=int(rng.choice([2, 4])))
@@ -86,10 +87,11 @@ def draw_case(seed: int, big: bool | None = None) -> dict:
 
 
 def describe(case: dict) -> str:
-    s, c = case["synth"], case["config"]
+    s, c = case["synth"], GenoConfig(**case["config"])
     return (f"sizes={s['sizes']} snps={s['n_snps']} reads={s['n_reads']} "
-            f"err={s['err_frac']} B={c['batch_reads']} "
-            f"E={c['events_per_read']} agree={c['agree_cap']} "
+            f"err={s['err_frac']} B={c.batch_reads} "
+            f"E={c.events_per_read} agree={c.agree_cap} "
+            f"G={c.group_size} depth={c.pipeline_depth} "
             f"queued={case['queued']}")
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR | --all-cards | --wgs | --wgs-cards
-                           | --all-cards --wgs-cards]
+    python3 chip_smoke.py [--parent DIR | --all-cards | --wgs [--repeats]
+                           | --wgs-cards [--repeats] | --all-cards --wgs-cards]
 
 ``--all-cards`` runs only the build and phase ``cards`` (below) on every
 visible card (2 or more). ``--wgs`` runs only the build and phase ``wgs``
@@ -11,7 +11,13 @@ refused otherwise) runs the build, then phase ``wgs_cards`` (below): the
 whole genome with a shard a card; beside its synthesis and index build run
 phases 3, 4 and 13 and, with ``--all-cards`` too, phase ``cards`` (whose
 reads/s are then taken beside that host build). A failed phase of that mode
-is recorded and the others still run; the run then exits 1.
+is recorded and the others still run; the run then exits 1. ``--repeats``
+(with ``--wgs`` or ``--wgs-cards`` only) draws that whole genome
+repeat-rich: the same seed and sizes with REPEATS_DUP_SHARE of its bases in
+segment families (``rehearse_wgs --dup-share``), in a cache directory of
+its own; the phase then also requires that the first attempt of its
+one-process stream spilled the ambiguous-exact capacity, and prints the
+index's aux rows and each card's ``aux_all`` bytes.
 
 ``--parent DIR`` names a checkout of an earlier commit of this repository,
 unpacked into a directory inside this one (``git archive <commit> | tar -x
@@ -235,7 +241,9 @@ wgs (``--wgs`` only) -- the JAX package's headline scale
    peak host RSS (``rehearse_wgs.stage_rss``), the index's bytes on the
    card and the peak device memory are printed,
    with the host's free disk, processor count and MemTotal; a stage whose
-   peak RSS reaches MemTotal fails the phase. Prints a ``{"wgs": ...}``
+   peak RSS reaches MemTotal fails the phase. With ``--repeats`` the
+   stream's first attempt must spill the ambiguous-exact capacity, and (b)
+   prints the aux rows and ``aux_all`` bytes. Prints a ``{"wgs": ...}``
    line. Needs ~47 GB of free disk for the index and ~6 GB for the inputs
    and outputs (checked first; ``<cache>/wgs.vgt`` may link the index to
    another file system) and about 25-30 minutes.
@@ -263,29 +271,35 @@ cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    every 2 global batches). Prints a ``{"cards": ...}`` line.
 
 wgs_cards (``--wgs-cards`` only) -- the headline scale of phase wgs (same
-   generator, seed, 3,000 Mb, 5,000,000 SNPs, 262,144 reads) with a shard
-   a card on cuda:0-3: (a) synthesis and the bucketed build as ``--wgs``
-   does them; (b) one process, the sharded dictionary at D = 4 over
-   cuda:0-3: the reads streamed at batch_reads 32768 with no overflow left
-   and the vote kernel launched, the VCF, oracle spot parity (2,048
-   sampled reads, every site equal); (c) four processes of one card over
-   nccl through the command line (``python -m vargeno_tpu_torch.cli geno
-   ... --multihost HOST:PORT --num-processes 4 --process-id i
+   generator, seed, 3,000 Mb, 5,000,000 SNPs, 262,144 reads) with a shard a
+   card on cuda:0-3: (a) synthesis and the bucketed build as ``--wgs`` does
+   them; (b) one process, the sharded dictionary at D = 4 over cuda:0-3:
+   the reads streamed at batch_reads 32768 with no overflow left and the
+   vote kernel launched, the first attempt's ambiguous exact hits a read
+   and ``amb_overflow``, the VCF, the bare vote launch on the first batch's
+   own records equal to the plain version and timed, oracle spot parity
+   (2,048 sampled reads, every site equal); (c) four processes of one card
+   over nccl through the command line (``python -m vargeno_tpu_torch.cli
+   geno ... --multihost HOST:PORT --num-processes 4 --process-id i
    --dist-backend nccl --mesh 4 --sharded-dict --batch-reads 32768``, each
    in ``--cli-rank``, which runs the CLI's ``main`` on that argument list
    and times its stages), the VCF byte-identical to (b)'s; (d) kill /
-   resume over the 2,097,152 endurance reads, four processes over nccl
-   from ``--mh-worker`` specs (the CLI checkpoints every 64 batches and a
+   resume over the 2,097,152 endurance reads, four processes over nccl from
+   ``--mh-worker`` specs (the CLI checkpoints every 64 batches and a
    32,768-read batch would checkpoint only at the end): leg A
    uninterrupted, leg B checkpointing every 4 global batches (524,288
-   reads) and SIGKILLed, every rank, once a checkpoint at or past
-   1,048,576 reads is on disk, leg C the same cluster again, resumed: its
-   VCF byte-identical to leg A's. Prints each stage's seconds (placement
-   per rank, stream, spot parity, each leg), per card the index bytes and
-   peak device memory, per rank the host peak RSS and vote launches, the
-   host's free disk, processors and MemTotal; a stage whose peak RSS
-   reaches MemTotal fails the phase. Prints a ``{"wgs_cards": ...}``
-   line. Needs the disk and time of ``--wgs`` and four cards.
+   reads) and SIGKILLed, every rank, once a checkpoint at or past 1,048,576
+   reads is on disk, leg C the same cluster again, resumed: its VCF
+   byte-identical to leg A's. The escalations of every rank of (c) and of
+   each leg of (d) must be equal (escalation runs in lockstep). Prints each
+   stage's seconds (placement per rank, stream, spot parity, each leg), the
+   index's ref and SNP aux rows, per card the index bytes, ``aux_all``
+   bytes and peak device memory, per rank the host peak RSS, escalations
+   and vote launches, the host's free disk, processors and MemTotal; a
+   stage whose peak RSS reaches MemTotal fails the phase. Prints a
+   ``{"wgs_cards": ...}`` line. Needs the disk and time of ``--wgs`` and
+   four cards. With ``--repeats`` (the cache directory's name ends in
+   ``_dup0.3``) (b)'s first attempt must spill.
 
 The last two lines of the default run and of ``--wgs-cards`` are a JSON
 object describing each kernel and the result line ``{"ok": true,
@@ -345,6 +359,9 @@ WGS_CHECKPOINT_EVERY = 8   # endurance checkpoints: every 262,144 reads
 # --wgs: the JAX package's headline scale (docs/WORKFLOWS.md:62-110), D = 2
 # shards on one card (SHARD_ROWS_MAX: at most 2^31 rows a shard)
 WGS3_MB, WGS3_SNPS, WGS3_DEVICES = 3000, 5_000_000, "cuda:0,cuda:0"
+# the share of that genome in segment families: 0 (uniform), or
+# REPEATS_DUP_SHARE with --repeats
+WGS3_DUP_SHARE = 0.0
 # free bytes the index, and the inputs and outputs, need (the index may
 # lie on another file system: <cache>/wgs.vgt may link to a directory)
 WGS3_INDEX_DISK, WGS3_IO_DISK = 47e9, 6e9
@@ -539,21 +556,23 @@ def time_vote_on_step(phase: str, card: str, records, C) -> dict:
     from vargeno_tpu_torch.utils.profiling import device_ms
 
     B, E = records[0].shape
-    go, raw_out = raw_vote(records, C)
-    go()
-    want = vote_scan_records_plain(*records, C)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(raw_out, want)):
-        raise AssertionError(f"{phase}: bare vote launch != plain on the "
-                             f"first batch's records")
-    n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
-    raw_ms = device_ms(go, DEVICE, reps=20)
-    st_ms = stream_ms(go)
-    plain_ms = device_ms(lambda: vote_scan_records_plain(*records, C),
-                         DEVICE, reps=3)
-    log(phase, f"[{card}] vote on the first forward batch's records, (E, "
-               f"B, C) = {(E, B, C)}, {n_ev} events (most in a read "
-               f"{int(records[2].max())}), row stride "
+    dev = records[0].device   # a shard's card: timed on its own streams
+    with torch.cuda.device(dev):
+        go, raw_out = raw_vote(records, C)
+        go()
+        want = vote_scan_records_plain(*records, C)
+        torch.cuda.synchronize(dev)
+        if not all(torch.equal(a, b) for a, b in zip(raw_out, want)):
+            raise AssertionError(f"{phase}: bare vote launch != plain on "
+                                 f"the first batch's records")
+        n_ev, (b_ms, b_by) = vote_bound(records[2], E, B, C)
+        raw_ms = device_ms(go, dev, reps=20)
+        st_ms = stream_ms(go)
+        plain_ms = device_ms(lambda: vote_scan_records_plain(*records, C),
+                             dev, reps=3)
+    log(phase, f"[{card}] vote on the first forward batch's records on "
+               f"{dev}, (E, B, C) = {(E, B, C)}, {n_ev} events (most in a "
+               f"read {int(records[2].max())}), row stride "
                f"{records[0].stride(0)}: bare launch {raw_ms:.4f} ms "
                f"between CUDA events round one call, {st_ms:.4f} "
                f"ms a launch in a stream of 50 (no less than the host's "
@@ -794,23 +813,6 @@ def check_no_overflow(runner, tag):
         raise AssertionError(f"{tag}: overflow counters left: {bad}")
 
 
-def record_first_attempt(runner) -> dict:
-    """The stats row of ``runner``'s first attempt (its first batch, before
-    any escalation), filled in once the run has made it: the runner's
-    ``_settle`` is wrapped (batches are settled in dispatch order), the
-    rows it returns are left as they are."""
-    first: dict = {}
-    settle = runner._settle
-
-    def recorded(*args):
-        out = settle(*args)
-        if not first:
-            first.update(out[0])
-        return out
-    runner._settle = recorded
-    return first
-
-
 def amb_summary(runner, first: dict) -> dict:
     """What a run says of the ambiguous-exact capacity: the ambiguous
     exact hits a read of its first batch (forward pass; over every shard of
@@ -823,6 +825,20 @@ def amb_summary(runner, first: dict) -> dict:
                     v for k, v in first.items()
                     if k.endswith("amb_overflow"))),
                 amb_hits_per_read=runner._cfg_run.amb_hits_per_read)
+
+
+def aux_rows(index) -> dict:
+    """The index's aux rows: the ref dictionary's (k-mers of 2-10 genome
+    positions) and the SNP dictionary's."""
+    return dict(n_ref_aux=int(index.ref.aux.shape[0]),
+                snp_aux_rows=int(index.snp.aux_pos.shape[0]))
+
+
+def aux_bytes(runner) -> dict:
+    """Bytes of ``aux_all`` on each device of a mesh runner (the table
+    every shard holds whole, once a device), by device name."""
+    return {str(t.device): t.numel() * t.element_size()
+            for t in (runner._dix_of(s).aux_all for s in runner.shards)}
 
 
 def phase_golden():
@@ -2008,10 +2024,10 @@ def mh_worker(spec: dict) -> int:
     when it exists) and ``write_vcf``, and prints one JSON line
     ``{"mh_run": ...}`` with what this process saw: among it each stage's
     peak RSS (load, setup, geno, vcf: ``rehearse_wgs.stage_rss``), each
-    of its cards' peak device memory and the ambiguous-exact numbers of
-    ``amb_summary``. A run with a ``counts`` path also
-    has process 0 save the merged per-site counts there (``np.savez``:
-    ref, alt)."""
+    of its cards' peak device memory and ``aux_all`` bytes and the
+    ambiguous-exact numbers of ``amb_summary``. A run with a ``counts``
+    path also has process 0 save the merged per-site counts there
+    (``np.savez``: ref, alt)."""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -2023,7 +2039,8 @@ def mh_worker(spec: dict) -> int:
     from vargeno_tpu_torch.tools.bench_scaling import (peak_bytes,
                                                        reset_peaks, sync)
     from vargeno_tpu_torch.tools.endurance_wgs import checkpoint_offset
-    from vargeno_tpu_torch.tools.rehearse_wgs import stage_rss
+    from vargeno_tpu_torch.tools.rehearse_wgs import (record_first_attempt,
+                                                      stage_rss)
 
     cluster = multihost.initialize(f"tcp://localhost:{spec['port']}",
                                    spec["world"], spec["rank"],
@@ -2086,6 +2103,7 @@ def mh_worker(spec: dict) -> int:
             got["vcf_s"] = time.perf_counter() - t0
         peaks = peak_bytes(cards)
         got.update(pass_s=pass_s, index_bytes=runner.device_bytes(),
+                   aux_bytes=aux_bytes(runner),
                    peak_bytes=peaks[0], card_peak_bytes=peaks,
                    cards=[str(c) for c in cards], load_s=load_s,
                    resumed_from=resumed_from, stage_peak_rss=dict(stages))
@@ -2648,9 +2666,10 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
     hash table's (ref, alt) counts, where given), the VCF written where
     ``vcf`` = (input VCF, output path) is given, then oracle spot parity
     through the same runner: WGS_SPOT sampled reads, 0 mismatches over
-    every site. Returns (its numbers, among them each card's index bytes
-    and peak device memory, and the first vote launch's records and
-    C)."""
+    every site. Returns (its numbers, among them each card's index bytes,
+    ``aux_all`` bytes and peak device memory, the index's aux rows and
+    the stream's first attempt's ambiguous-exact numbers
+    (``amb_summary``), and the first vote launch's records and C)."""
     import numpy as np
     import torch
 
@@ -2708,7 +2727,9 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
         vote_launches=launches, escalations=runner.n_escalations,
         route_overflow=runner.stats_totals["route_overflow"],
         final_route_factor=runner._cfg_run.route_factor,
-        retry_reads=runner.n_retry_reads, stats=got["stats"])
+        retry_reads=runner.n_retry_reads, stats=got["stats"],
+        **aux_rows(index), card_aux_bytes=aux_bytes(runner),
+        **amb_summary(runner, got["first_attempt"]))
     log(tag, f"[{card}] sharded dictionary, D = {out['shards']}: streamed "
              f"placement {setup_s:.2f} s at a peak RSS of "
              f"{stages['placement']} B, {out['index_bytes']} B of index on "
@@ -2721,7 +2742,12 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
              f"{out['cards']}: {peaks} B, index "
              f"{out['card_index_bytes']} B); escalations "
              f"{runner.n_escalations} (route_factor {cfg.route_factor} -> "
-             f"{runner._cfg_run.route_factor}), vote launches {launches}")
+             f"{runner._cfg_run.route_factor}), vote launches {launches}; "
+             f"aux rows: ref {out['n_ref_aux']}, SNP {out['snp_aux_rows']},"
+             f" aux_all {out['card_aux_bytes']} B; first attempt: "
+             f"{out['amb_hits_a_read']:.4f} ambiguous exact hits a read, "
+             f"amb_overflow {out['first_amb_overflow']}; final "
+             f"amb_hits_per_read {out['amb_hits_per_read']}")
     if vcf is not None:
         t0 = time.perf_counter()
         with rehearse_wgs.stage_rss(stages, "vcf"):
@@ -3006,6 +3032,7 @@ def phase_repeats(card: str, prep: dict) -> dict:
     from vargeno_tpu_torch.io.fastq import autosize_shapes
     from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
     from vargeno_tpu_torch.tools import fuzz_diff
+    from vargeno_tpu_torch.tools.rehearse_wgs import record_first_attempt
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3187,7 +3214,11 @@ def phase_repeats(card: str, prep: dict) -> dict:
 
 
 def wgs_dir() -> str:
-    return os.path.join(CACHE, f"wgs{WGS3_MB}mb_{WGS3_SNPS}snp_{WGS_READS}r")
+    """The headline scale's cache directory; a repeat-rich draw's names its
+    dup share, so that a uniform cache is never taken for it."""
+    dup = f"_dup{WGS3_DUP_SHARE}" if WGS3_DUP_SHARE else ""
+    return os.path.join(CACHE,
+                        f"wgs{WGS3_MB}mb_{WGS3_SNPS}snp_{WGS_READS}r{dup}")
 
 
 def wgs_setup(tag: str, card: str, devices: str):
@@ -3205,7 +3236,8 @@ def wgs_setup(tag: str, card: str, devices: str):
     prefix = os.path.join(d, "wgs")
     host = rehearse_wgs.host_info(d)
     log(tag, f"[{card}] {WGS3_MB} Mb, {WGS3_SNPS} SNPs, {WGS_READS} reads, "
-             f"batch_reads {BATCH}, devices {devices}; host: "
+             f"dup share {WGS3_DUP_SHARE}, batch_reads {BATCH}, devices "
+             f"{devices}; host: "
              f"{host['nproc']} processors, MemTotal {host['mem_total']} B, "
              f"free disk {host['disk_free']} B")
     vgt = os.path.realpath(prefix + ".vgt")
@@ -3226,12 +3258,37 @@ def wgs_setup(tag: str, card: str, devices: str):
 
 def start_wgs_index():
     """The headline scale's synthesis (the reads and the endurance reads
-    too) and index build: the rehearsal tool's command line in a session
-    of its own (host only)."""
+    too; repeat-rich at WGS3_DUP_SHARE) and index build: the rehearsal
+    tool's command line in a session of its own (host only)."""
     return start_session(tool_command(
         "rehearse_wgs", "--phase", "index", "--mb", WGS3_MB, "--snps",
-        WGS3_SNPS, "--reads", WGS_READS, "--extra-reads", WGS_EXTRA_READS,
-        "--cache", wgs_dir(), "--progress-every", 0))
+        WGS3_SNPS, "--reads", WGS_READS, "--dup-share", WGS3_DUP_SHARE,
+        "--extra-reads", WGS_EXTRA_READS, "--cache", wgs_dir(),
+        "--progress-every", 0))
+
+
+def check_sites(tag: str, n_sites: int) -> None:
+    """The index holds this draw's sites: on the uniform draw one a SNP. A
+    SNP seeds a site only through an unambiguous SNP-dictionary row
+    (src/qv.cc:637-660), so on a repeat-rich draw a few SNPs in families
+    seed none, as in the reference: there at least 99 % of the SNPs must
+    seed one."""
+    low = WGS3_SNPS if not WGS3_DUP_SHARE else 0.99 * WGS3_SNPS
+    if not low <= n_sites <= WGS3_SNPS:
+        raise AssertionError(f"{tag}: {n_sites} sites of {WGS3_SNPS} SNPs")
+    log(tag, f"{n_sites} sites of {WGS3_SNPS} SNPs ({WGS3_SNPS - n_sites} "
+             f"seed none: no unambiguous SNP-dictionary row)")
+
+
+def check_spill(tag: str, sharded: dict) -> None:
+    """On a repeat-rich draw, the one-process stream's first attempt must
+    have spilled the ambiguous-exact capacity (so escalation was
+    reached)."""
+    if WGS3_DUP_SHARE and sharded["first_amb_overflow"] <= 0:
+        raise AssertionError(f"{tag}: the first attempt did not spill the "
+                             f"ambiguous-exact capacity "
+                             f"({sharded['amb_hits_a_read']:.4f} hits a "
+                             f"read)")
 
 
 def phase_wgs(card: str) -> dict:
@@ -3266,11 +3323,11 @@ def phase_wgs(card: str) -> dict:
     n_ref, n_snp = int(index.ref.kmers.shape[0]), int(index.snp.kmers.shape[0])
     log("wgs", f"[{card}] index loaded (mmap) in {load_s:.2f} s: {n_ref} ref "
                f"rows, {n_snp} snp rows, {n_sites} sites")
-    if n_sites != WGS3_SNPS:
-        raise AssertionError(f"wgs: {n_sites} sites, not {WGS3_SNPS}")
+    check_sites("wgs", n_sites)
     sharded, first = sharded_genome_checks(
         "wgs", card, index, fq, make_mesh(devices=WGS3_DEVICES.split(",")),
         rehearse_wgs.geno_config(BATCH), stages)
+    check_spill("wgs", sharded)
     del index
     gc.collect()
     vote_on_step = time_vote_on_step("wgs", card, *first)
@@ -3279,8 +3336,9 @@ def phase_wgs(card: str) -> dict:
     # (d) kill / resume at D = 2
     end = finish_tool(start_session(tool_command(
         "endurance_wgs", "--cache", d, "--mb", WGS3_MB, "--snps", WGS3_SNPS,
-        "--base-reads", WGS_READS, "--reads", WGS_EXTRA_READS, "--device",
-        DEVICE, "--devices", WGS3_DEVICES, "--batch", BATCH,
+        "--base-reads", WGS_READS, "--dup-share", WGS3_DUP_SHARE,
+        "--reads", WGS_EXTRA_READS, "--device", DEVICE, "--devices",
+        WGS3_DEVICES, "--batch", BATCH,
         "--checkpoint-every", WGS_CHECKPOINT_EVERY, "--kill-after-frac",
         0.5)), 2400, "wgs", ("endurance",)).get("endurance", {})
     endurance = endurance_summary(card, end, "wgs")
@@ -3293,10 +3351,11 @@ def phase_wgs(card: str) -> dict:
                              f"({host['mem_total']} B): {over}")
     out = dict(
         card=card, mb=WGS3_MB, snps=WGS3_SNPS, reads=WGS_READS,
-        batch_reads=BATCH, devices=WGS3_DEVICES, ref_rows=n_ref,
-        snp_rows=n_snp, host=host, prep=prep, prep_s=prep_s, load_s=load_s,
-        sharded=sharded, vote_on_step=vote_on_step, endurance=endurance,
-        stage_peak_rss=stages, seconds=time.perf_counter() - t_phase)
+        dup_share=WGS3_DUP_SHARE, batch_reads=BATCH, devices=WGS3_DEVICES,
+        ref_rows=n_ref, snp_rows=n_snp, host=host, prep=prep, prep_s=prep_s,
+        load_s=load_s, sharded=sharded, vote_on_step=vote_on_step,
+        endurance=endurance, stage_peak_rss=stages,
+        seconds=time.perf_counter() - t_phase)
     log("wgs", f"[{card}] peak RSS by stage (B): {json.dumps(stages)}; "
                f"phase wgs {out['seconds']:.1f} s")
     return out
@@ -3308,15 +3367,17 @@ def cli_rank(spec: dict) -> int:
     ``python -m vargeno_tpu_torch.cli`` runs), with its runner's
     construction (the placement), stream and VCF timed and their peak RSS
     sampled (``rehearse_wgs.stage_rss``), the vote kernel's launches
-    counted and its cards' peak device memory read; prints one JSON line
-    ``{"cli_rank": ...}`` under ``spec["tag"]``. Exits with the CLI's
-    code."""
+    counted, its cards' peak device memory and ``aux_all`` bytes read and
+    its first attempt's ambiguous-exact numbers kept (``amb_summary``);
+    prints one JSON line ``{"cli_rank": ...}`` under ``spec["tag"]``.
+    Exits with the CLI's code."""
     sys.path.insert(0, ROOT)
     from vargeno_tpu_torch import cli
     from vargeno_tpu_torch.dist import multihost
     from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
     from vargeno_tpu_torch.tools.bench_scaling import peak_bytes
-    from vargeno_tpu_torch.tools.rehearse_wgs import stage_rss
+    from vargeno_tpu_torch.tools.rehearse_wgs import (record_first_attempt,
+                                                      stage_rss)
 
     stages, secs, seen = {}, {}, {}
 
@@ -3329,6 +3390,8 @@ def cli_rank(spec: dict) -> int:
                 got = fn(self, *a, **k)
             secs[stage] = time.perf_counter() - t0
             seen["runner"] = self
+            if stage == "placement":
+                seen["first"] = record_first_attempt(self)
             return got
         setattr(cls, name, run)
 
@@ -3350,8 +3413,9 @@ def cli_rank(spec: dict) -> int:
         escalations=runner.n_escalations,
         overflow={k: v for k, v in runner.stats_totals.items()
                   if "overflow" in k and v},
-        index_bytes=runner.device_bytes(),
-        card_peak_bytes=peak_bytes(cards))}), flush=True)
+        index_bytes=runner.device_bytes(), aux_bytes=aux_bytes(runner),
+        card_peak_bytes=peak_bytes(cards),
+        **amb_summary(runner, seen["first"]))}), flush=True)
     return rc
 
 
@@ -3415,14 +3479,17 @@ def phase_wgs_cards(card: str, setup, prep_proc, stages: dict) -> dict:
     result; ``prep_proc``: the running synthesis and build
     (``start_wgs_index``); ``stages``: each stage's peak RSS, filled
     here. (b) one process, D = 4 over cuda:0-3: the
-    stream, no overflow, the vote launched, the VCF, oracle spot parity;
-    (c) four processes of one card over nccl through the command line,
-    their VCF byte-identical to (b)'s; (d) kill / resume over the
+    stream, no overflow, the vote launched, the first attempt's spill
+    (required on a repeat-rich draw), the VCF, oracle spot parity, the
+    bare vote launch on the first batch's records against the plain
+    version; (c) four processes of one card over nccl through the command
+    line, their VCF byte-identical to (b)'s; (d) kill / resume over the
     endurance reads, four processes over nccl from ``--mh-worker`` specs
     checkpointing every WGS4_CHECKPOINT_EVERY global batches: leg B
     SIGKILLed (every rank) at a checkpoint past half the stream, leg C's
-    VCF byte-identical to leg A's. Each part that fails is recorded and
-    the rest still runs; the phase then fails."""
+    VCF byte-identical to leg A's. In (c) and in legs A and C of (d) every
+    rank must have escalated as often as the others. Each part that fails
+    is recorded and the rest still runs; the phase then fails."""
     import torch
 
     from vargeno_tpu_torch.dist.sharding import make_mesh
@@ -3434,7 +3501,8 @@ def phase_wgs_cards(card: str, setup, prep_proc, stages: dict) -> dict:
     d, prefix, fq, host = setup
     vcf_in = os.path.join(d, "snps.vcf")
     out = dict(card=card, mb=WGS3_MB, snps=WGS3_SNPS, reads=WGS_READS,
-               batch_reads=BATCH, devices=WGS4_DEVICES, host=host)
+               dup_share=WGS3_DUP_SHARE, batch_reads=BATCH,
+               devices=WGS4_DEVICES, host=host)
     failures = []
 
     # (a) synthesis and the index build (started by the caller)
@@ -3454,16 +3522,21 @@ def phase_wgs_cards(card: str, setup, prep_proc, stages: dict) -> dict:
             index = store.load(prefix)
         load_s = time.perf_counter() - t0
         n_sites = int(index.sites.pos.shape[0])
-        if n_sites != WGS3_SNPS or n < len(devices):
-            raise AssertionError(f"wgs_cards: {n_sites} sites, {n} cards")
-        sharded, _ = sharded_genome_checks(
+        check_sites("wgs_cards", n_sites)
+        if n < len(devices):
+            raise AssertionError(f"wgs_cards: {n} cards")
+        sharded, first = sharded_genome_checks(
             "wgs_cards", card, index, fq, make_mesh(devices=devices),
             rehearse_wgs.geno_config(BATCH), b_stages, vcf=(vcf_in, vcf_b))
         del index
         gc.collect()
         torch.cuda.empty_cache()
-        out["b"] = dict(load_s=load_s, **sharded)
         stages.update({f"(b) {k}": v for k, v in b_stages.items()})
+        out["b"] = dict(load_s=load_s, **sharded)
+        check_spill("wgs_cards (b)", sharded)
+        out["b"]["vote_on_step"] = time_vote_on_step("wgs_cards", card,
+                                                     *first)
+        del first
     except Exception as e:   # recorded; the phase fails at its end
         failures.append(f"(b): {e!r}")
         log("wgs_cards", f"FAILED (b): {e!r}")
@@ -3506,7 +3579,8 @@ def cli_cluster(tag: str, card: str, prefix: str, fq: str, vcf_in: str,
     """n processes of one card each through the command line (``geno
     ... --multihost --sharded-dict --mesh n``, each in ``--cli-rank``, the
     cards the CLI's default): every rank's stages, vote launches and
-    memory, no overflow, and the VCF byte-identical to ``want_vcf``."""
+    memory, no overflow, the same escalations on every rank, and the VCF
+    byte-identical to ``want_vcf``."""
     port = free_port()
     cmds = [worker_command("--cli-rank", dict(tag=tag, argv=[
         "geno", prefix, fq, vcf_in, vcf_out, "--device", DEVICE,
@@ -3534,12 +3608,15 @@ def cli_cluster(tag: str, card: str, prefix: str, fq: str, vcf_in: str,
              f"{[r['cards'] for r in ranks]}, index bytes "
              f"{[r['index_bytes'] for r in ranks]}, peak device memory "
              f"{[r['card_peak_bytes'] for r in ranks]} B, peak RSS "
-             f"{[r['stage_peak_rss'] for r in ranks]} B; {ranks[0]['reads']}"
-             f" reads, escalations {ranks[0]['escalations']}; cluster wall "
+             f"{[r['stage_peak_rss'] for r in ranks]} B, aux_all "
+             f"{[r['aux_bytes'] for r in ranks]} B; {ranks[0]['reads']} "
+             f"reads, escalations {[r['escalations'] for r in ranks]}, "
+             f"first attempt's amb_overflow "
+             f"{[r['first_amb_overflow'] for r in ranks]}; cluster wall "
              f"{wall_s:.1f} s")
     if not same or len(ranks) != n or any(
             r["overflow"] or r["vote_launches"] <= 0 or r["rc"]
-            for r in ranks):
+            for r in ranks) or len({r["escalations"] for r in ranks}) != 1:
         raise AssertionError(f"{tag}: VCF equal {same}, ranks {ranks}")
     return dict(wall_s=wall_s, vcf_equal=same, ranks=ranks)
 
@@ -3553,8 +3630,9 @@ def cluster_endurance(tag: str, card: str, prefix: str, fq: str,
     stream is on disk) and C (the same cluster again, resumed), n
     processes of one card over nccl from ``--mh-worker`` specs (the CLI
     checkpoints every 64 batches only). C must resume from the kill's
-    checkpoint and write leg A's VCF byte for byte, with no overflow and
-    the vote kernel launched in every process of A and C."""
+    checkpoint and write leg A's VCF byte for byte, with no overflow, the
+    vote kernel launched in every process of A and C and the same
+    escalations on every rank of a leg."""
     from vargeno_tpu_torch.tools.endurance_wgs import checkpoint_offset
 
     name = tag.split()[0]
@@ -3585,15 +3663,22 @@ def cluster_endurance(tag: str, card: str, prefix: str, fq: str,
                        "vcf_s", "resumed_from", "vote_launches",
                        "escalations", "batches", "retry_batches",
                        "overflow", "index_bytes", "card_peak_bytes",
-                       "cards", "stage_peak_rss")} for r in ranks])
+                       "aux_bytes", "amb_hits_a_read", "first_amb_overflow",
+                       "amb_hits_per_read", "cards", "stage_peak_rss")}
+                          for r in ranks])
         if ranks:
             log(tag, f"[{card}] leg {k}: wall {wall_s:.1f} s; per rank: "
                      f"load {[round(r['load_s'], 2) for r in ranks]} s, "
                      f"placement {[round(r['setup_s'], 2) for r in ranks]}"
                      f" s, stream {[round(r['geno_s'], 2) for r in ranks]} "
                      f"s ({ranks[0]['reads']} reads, resumed from "
-                     f"{ranks[0]['resumed_from']}), vote launches "
-                     f"{[r['vote_launches'] for r in ranks]}, peak device "
+                     f"{ranks[0]['resumed_from']}), escalations "
+                     f"{[r['escalations'] for r in ranks]}, first "
+                     f"attempt's amb_overflow "
+                     f"{[r['first_amb_overflow'] for r in ranks]}, vote "
+                     f"launches {[r['vote_launches'] for r in ranks]}, "
+                     f"aux_all {[r['aux_bytes'] for r in ranks]} B, peak "
+                     f"device "
                      f"memory {[r['card_peak_bytes'] for r in ranks]} B, "
                      f"index {[r['index_bytes'] for r in ranks]} B")
         return got
@@ -3619,7 +3704,8 @@ def cluster_endurance(tag: str, card: str, prefix: str, fq: str,
     for k in "AC":
         if len(legs[k]["ranks"]) != n or any(
                 r["overflow"] or r["vote_launches"] <= 0
-                for r in legs[k]["ranks"]):
+                for r in legs[k]["ranks"]) or len(
+                    {r["escalations"] for r in legs[k]["ranks"]}) != 1:
             ok = False
     log(tag, f"[{card}] kill / resume over {total} reads, {n} processes "
              f"over {WGS4_BACKEND}: leg C resumed from {offset} and its VCF "
@@ -4022,6 +4108,9 @@ def four_cards(card: str, t_start: float, with_cards: bool) -> int:
         got["bench"][1],
         launches_of="wgs_cards (b): the 262,144-read pass at D = 4 in one "
                     "process",
+        wgs_cards_batch_raw_launch_ms=w["b"]["vote_on_step"]["raw_ms"],
+        wgs_cards_batch_plain_ms=w["b"]["vote_on_step"]["plain_ms"],
+        wgs_cards_batch_bound_ms=w["b"]["vote_on_step"]["bound_ms"],
         launches_per_process={
             "(b) spot parity": w["b"]["spot"]["vote_launches"],
             "(c) 4 processes (CLI)": [r["vote_launches"]
@@ -4044,9 +4133,11 @@ def main() -> int:
         parent = argv[1]
     elif argv and sorted(argv) not in (
             ["--all-cards"], ["--wgs"], ["--wgs-cards"],
-            ["--all-cards", "--wgs-cards"]):
-        print("usage: chip_smoke.py [--parent DIR | --all-cards | --wgs | "
-              "--wgs-cards | --all-cards --wgs-cards]", file=sys.stderr)
+            ["--all-cards", "--wgs-cards"], ["--repeats", "--wgs"],
+            ["--repeats", "--wgs-cards"]):
+        print("usage: chip_smoke.py [--parent DIR | --all-cards | --wgs "
+              "[--repeats] | --wgs-cards [--repeats] | --all-cards "
+              "--wgs-cards]", file=sys.stderr)
         return 2
     try:
         import numpy as np
@@ -4059,6 +4150,10 @@ def main() -> int:
         return 1
     if argv and argv[0] == "--mh-worker":
         return mh_worker(json.loads(argv[1]))
+    if "--repeats" in argv:   # the whole genome, repeat-rich
+        global WGS3_DUP_SHARE
+        WGS3_DUP_SHARE = REPEATS_DUP_SHARE
+        argv.remove("--repeats")
     if argv and argv[0] == "--cli-rank":
         return cli_rank(json.loads(argv[1]))
     if argv and argv[0] in ("--step-ops-of", "--routed-step-ops-of"):

@@ -23,24 +23,19 @@ def synth_genome(rng, sizes=(20_000,), names=("chrS1",)):
     return out
 
 
-def synth_repeat_genome(rng, size, dup_share, copies=(2, 10),
-                        seg_len=(1000, 3000), divergence=0.01,
-                        high_copy=(16, 400), name="chrR1"):
-    """A repeat-rich genome in ``synth_genome``'s form (so ``write_inputs``
-    and ``build_synth_index`` take it unchanged): one chromosome of
-    ``size`` uniform random bases in which segment families cover about
-    ``dup_share`` of the bases. A family is a random segment of
-    ``seg_len`` bases (inclusive range) written at ``copies`` (inclusive
-    range) random places, each copy with its own substitutions at rate
-    ``divergence``; copies may overlap one another. Its 32-mers thus hit
-    dictionary rows with 2-10 genome positions (aux rows) and their
-    Hamming-1 neighbors. ``high_copy`` = (copies, length) adds one exact
-    family of more than 10 copies, whose 32-mers are unusable
-    (POS_AMBIGUOUS) rows; None leaves it out.
-
-    The port's own test data, with no JAX counterpart: the uniform draws
-    of ``synth_genome`` almost never reach aux rows."""
-    g = rng.integers(0, 4, size, dtype=np.uint8)
+def plant_families(rng, g, dup_share, copies=(2, 10), seg_len=(1000, 3000),
+                   divergence=0.01, high_copy=(16, 400)):
+    """Write segment families into the uint8 base codes ``g`` in place,
+    drawing from ``rng``, until they cover about ``dup_share`` of its
+    bases. A family is a random segment of ``seg_len`` bases (inclusive
+    range) written at ``copies`` (inclusive range) random places, each
+    copy with its own substitutions at rate ``divergence``; copies may
+    overlap one another. Its 32-mers thus hit dictionary rows with 2-10
+    genome positions (aux rows) and their Hamming-1 neighbors.
+    ``high_copy`` = (copies, length) adds one exact family of more than 10
+    copies, whose 32-mers are unusable (POS_AMBIGUOUS) rows; None leaves
+    it out. Allocates one segment at a time, nothing of ``g``'s size."""
+    size = g.shape[0]
     covered = 0
     while covered < dup_share * size:
         n = int(rng.integers(copies[0], copies[1] + 1))
@@ -57,6 +52,22 @@ def synth_repeat_genome(rng, size, dup_share, copies=(2, 10),
         seg = rng.integers(0, 4, length, dtype=np.uint8)
         for p in rng.integers(0, size - length, n):
             g[p:p + length] = seg
+
+
+def synth_repeat_genome(rng, size, dup_share, copies=(2, 10),
+                        seg_len=(1000, 3000), divergence=0.01,
+                        high_copy=(16, 400), name="chrR1"):
+    """A repeat-rich genome in ``synth_genome``'s form (so ``write_inputs``
+    and ``build_synth_index`` take it unchanged): one chromosome of
+    ``size`` uniform random bases in which ``plant_families`` (same
+    generator, same parameters) writes segment families over about
+    ``dup_share`` of the bases.
+
+    The port's own test data, with no JAX counterpart: the uniform draws
+    of ``synth_genome`` almost never reach aux rows."""
+    g = rng.integers(0, 4, size, dtype=np.uint8)
+    plant_families(rng, g, dup_share, copies, seg_len, divergence,
+                   high_copy)
     return [(name, _BASES[g])]
 
 

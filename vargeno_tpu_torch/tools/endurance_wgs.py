@@ -22,14 +22,15 @@ leg B ends before that point or dies before any checkpoint.
 
     python -m vargeno_tpu_torch.tools.endurance_wgs [--reads 2097152]
         [--cache DIR] [--mb 3000 --snps 5000000 --base-reads 65536]
-        [--kill-after-frac 0.5] [--device cuda] [--devices DEV,...]
-        [--batch 2048] [--checkpoint-every 16]
+        [--dup-share 0.0] [--kill-after-frac 0.5] [--device cuda]
+        [--devices DEV,...] [--batch 2048] [--checkpoint-every 16]
 
 Expects the index already built (``rehearse_wgs --phase index`` with the
-same ``--cache``, ``--mb``, ``--snps`` and ``--base-reads`` as its
-``--reads``). The last line is one JSON object ``{"endurance": ...}``: each
-leg's ``{"geno": ...}`` line (each stage's peak RSS among its numbers) and
-the host's free disk, processor count and MemTotal before the legs.
+same ``--cache``, ``--mb``, ``--snps``, ``--dup-share`` and
+``--base-reads`` as its ``--reads``). The last line is one JSON object
+``{"endurance": ...}``: each leg's ``{"geno": ...}`` line (each stage's
+peak RSS among its numbers) and the host's free disk, processor count and
+MemTotal before the legs.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ def leg_command(args, extra) -> list:
     cmd = [sys.executable, "-m", "vargeno_tpu_torch.tools.rehearse_wgs",
            "--phase", "geno", "--cache", args.cache, "--mb", str(args.mb),
            "--snps", str(args.snps), "--reads", str(args.base_reads),
+           "--dup-share", str(args.dup_share),
            "--device", args.device, "--batch", str(args.batch),
            "--extra-reads", str(args.reads), "--limit-batches", "0",
            "--checkpoint-every", str(args.checkpoint_every),
@@ -142,6 +144,8 @@ def main(argv=None) -> int:
     ap.add_argument("--snps", type=int, default=5_000_000)
     ap.add_argument("--base-reads", type=int, default=65_536,
                     help="the --reads the index's inputs were made with")
+    ap.add_argument("--dup-share", type=float, default=0.0,
+                    help="the --dup-share the index's inputs were made with")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--devices", default=None)
     ap.add_argument("--batch", type=int, default=2048)

@@ -13,7 +13,8 @@ stage's own peak RSS (``stage_peak_rss``: the largest RSS sampled every
 MemTotal as the run found them (``host``).
 
     python -m vargeno_tpu_torch.tools.rehearse_wgs [--mb 3000]
-        [--snps 5000000] [--reads 65536] [--cache DIR] [--phase all]
+        [--snps 5000000] [--reads 65536] [--dup-share 0.0] [--cache DIR]
+        [--phase all]
         [--runner sharded|ht] [--device cuda] [--devices cuda:0,...]
         [--extra-reads N] [--spot-parity N] [--checkpoint P]
 
@@ -22,6 +23,11 @@ the same bytes: the FASTA (written in chunks), the VCF, and the FASTQ of
 reads off two haplotypes with 15% single-base errors, half of them
 reverse-complemented. Memory-aware by construction: the genome is made and
 written in chunks as uint8 codes, and reads are sliced from the codes.
+``--dup-share S`` (the port's own, 0 by default) makes the genome
+repeat-rich: segment families of 2-10 copies at 1 % divergence over about
+S of its bases, and one exact 16-copy family, planted into the codes
+before they are written, so that its dictionaries hold aux rows (k-mers of
+2-10 positions) and POS_AMBIGUOUS rows at genome scale.
 
 Phases: ``gen`` writes the inputs (and ``reads_{N}.fq`` with
 ``--extra-reads N``), ``index`` also builds the index, ``geno`` (and
@@ -112,17 +118,44 @@ def default_cache() -> str:
     return os.path.join(tempfile.gettempdir(), "vgt_wgs")
 
 
-def gen_inputs(cache, mb, n_snps, n_reads, read_len=101, seed=20260819):
+def ready_marker(cache, mb, n_snps, n_reads, dup_share=0.0) -> str:
+    """The file that says ``cache`` holds this draw's inputs; a repeat-rich
+    draw's names its dup share."""
+    dup = f"_dup{dup_share}" if dup_share else ""
+    return os.path.join(cache, f"ready_{mb}_{n_snps}_{n_reads}{dup}")
+
+
+def gen_inputs(cache, mb, n_snps, n_reads, read_len=101, seed=20260819,
+               dup_share=0.0):
+    """The genome, VCF and reads of the draw (``mb``, ``n_snps``,
+    ``n_reads``, ``seed``), written into ``cache`` unless its ready marker
+    is there. ``dup_share`` > 0 plants segment families
+    (``testing.plant_families``: 2-10 copies of 1,000-3,000 bases at 1 %
+    divergence, and one exact 16-copy family of 400) over about that share
+    of the uniform codes, in place, from a generator of their own seeded
+    from (``seed``, 1); the SNPs and reads are then drawn as at 0, so they
+    fall inside families too. At 0 the files are the JAX tool's. Making a
+    draw removes the markers of other draws and their extra reads
+    (``reads_*.fq``), whose files it overwrites."""
     fa = os.path.join(cache, "genome.fa")
     vcf = os.path.join(cache, "snps.vcf")
     fq = os.path.join(cache, "reads.fq")
-    marker = os.path.join(cache, f"ready_{mb}_{n_snps}_{n_reads}")
+    marker = ready_marker(cache, mb, n_snps, n_reads, dup_share)
     if os.path.exists(marker):
         return fa, vcf, fq
+    for name in os.listdir(cache):
+        if name.startswith("ready_") or (name.startswith("reads_")
+                                         and name.endswith(".fq")):
+            os.remove(os.path.join(cache, name))
     rng = np.random.default_rng(seed)
     n = mb * 1_000_000
     log(f"generating {mb} Mb genome codes")
     codes = rng.integers(0, 4, n, dtype=np.uint8)
+    if dup_share:
+        from ..testing import plant_families
+
+        log(f"planting segment families over {dup_share} of the genome")
+        plant_families(np.random.default_rng((seed, 1)), codes, dup_share)
 
     log("writing FASTA (chunked)")
     W = 70
@@ -315,13 +348,32 @@ def peak_device_bytes(runner):
                 if d.type == "cuda"), default=None)
 
 
+def record_first_attempt(runner) -> dict:
+    """The stats row of ``runner``'s first attempt (its first batch, before
+    any escalation), filled in once the run has made it: the runner's
+    ``_settle`` is wrapped (batches are settled in dispatch order), the
+    rows it returns are left as they are."""
+    first: dict = {}
+    settle = runner._settle
+
+    def recorded(*args):
+        out = settle(*args)
+        if not first:
+            first.update(out[0])
+        return out
+    runner._settle = recorded
+    return first
+
+
 def stream(runner, fq, limit_batches=None, checkpoint=None,
            checkpoint_every=16, progress_every=30.0) -> dict:
     """``runner.consume_fastq`` with a progress line every
     ``progress_every`` seconds (0: none); returns the run's numbers:
     reads streamed (a resumed run's skipped reads excluded), seconds,
     reads/s, the checkpoint offset it resumed from, vote launches,
-    escalations and the stats totals."""
+    escalations, the stats totals and the stats row of the first attempt
+    (its first batch before any escalation: on a repeat-rich genome its
+    ``amb_overflow`` says that the escalation path was reached)."""
     import torch
 
     from ..kernels.vote import vote_scan_records
@@ -340,6 +392,8 @@ def stream(runner, fq, limit_batches=None, checkpoint=None,
                 last_n, last_t = n, t
 
         threading.Thread(target=progress, daemon=True).start()
+    settle = runner._settle
+    first = record_first_attempt(runner)
     launches = vote_scan_records.launches
     n0 = runner.n_reads
     t0 = time.perf_counter()
@@ -352,13 +406,15 @@ def stream(runner, fq, limit_batches=None, checkpoint=None,
                 torch.cuda.synchronize(d)
     finally:
         stop.set()
+        runner._settle = settle
     dt = time.perf_counter() - t0
     reads = runner.n_reads - max(n0, resumed_from)
     return dict(reads=reads, total_reads=runner.n_reads, seconds=dt,
                 reads_s=reads / dt, resumed_from=resumed_from,
                 vote_launches=vote_scan_records.launches - launches,
                 escalations=runner.n_escalations,
-                stats={k: int(v) for k, v in runner.stats_totals.items()})
+                stats={k: int(v) for k, v in runner.stats_totals.items()},
+                first_attempt={k: int(v) for k, v in first.items()})
 
 
 def spot_parity(index, runner, fq, n_spot, seed=11) -> dict:
@@ -421,6 +477,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mb", type=int, default=3000)
     ap.add_argument("--snps", type=int, default=5_000_000)
     ap.add_argument("--reads", type=int, default=65_536)
+    ap.add_argument("--dup-share", type=float, default=0.0,
+                    help="plant segment families of 2-10 copies over about "
+                         "this share of the genome (0: uniform, the JAX "
+                         "tool's draw)")
     ap.add_argument("--extra-reads", type=int, default=0,
                     help="generate + stream an additional reads_{N}.fq "
                          "from the existing genome/VCF (index untouched)")
@@ -468,7 +528,8 @@ def main(argv=None) -> int:
     stages: dict = {}
     t0 = time.perf_counter()
     with stage_rss(stages, "gen"):
-        fa, vcf, fq = gen_inputs(args.cache, args.mb, args.snps, args.reads)
+        fa, vcf, fq = gen_inputs(args.cache, args.mb, args.snps, args.reads,
+                                 dup_share=args.dup_share)
     gen_s = time.perf_counter() - t0
     if args.extra_reads:
         with stage_rss(stages, "extra_reads"):
@@ -491,12 +552,20 @@ def main(argv=None) -> int:
         build_s = time.perf_counter() - t0
         log(f"index build: done (peak RSS {stages['build']} B; seconds by "
             f"stage {build_stages})")
+        built = store.load(prefix)
         print(json.dumps({"index": dict(
-            mb=args.mb, snps=args.snps, gen_s=gen_s, extra_reads_s=extra_s,
+            mb=args.mb, snps=args.snps, dup_share=args.dup_share,
+            gen_s=gen_s, extra_reads_s=extra_s,
             build_s=build_s, build_stages_s=build_stages,
+            ref_rows=int(built.ref.kmers.shape[0]),
+            n_ref_aux=int(built.ref.aux.shape[0]),
+            snp_rows=int(built.snp.kmers.shape[0]),
+            snp_aux_rows=int(built.snp.aux_pos.shape[0]),
+            sites=int(built.sites.pos.shape[0]),
             disk_bytes=dir_bytes(prefix + ".vgt"),
             peak_rss_bytes=peak_rss(), stage_peak_rss=stages,
             host=host)}), flush=True)
+        del built
     if args.phase == "index":
         return 0
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR | --all-cards | --wgs [--repeats]
+    python3 chip_smoke.py [--parent DIR | --all-cards
+                           | --wgs [--repeats | --filt]
                            | --wgs-cards [--repeats] | --all-cards --wgs-cards]
 
 ``--all-cards`` runs only the build and phase ``cards`` (below) on every
 visible card (2 or more). ``--wgs`` runs only the build and phase ``wgs``
-(below): the whole genome on one card. ``--wgs-cards`` (four visible cards;
+(below): the whole genome on one card; ``--wgs --filt`` runs the build
+and phase ``wgs_filt`` (below) instead. ``--wgs-cards`` (four visible cards;
 refused otherwise) runs the build, then phase ``wgs_cards`` (below): the
 whole genome with a shard a card; beside its synthesis and index build run
 phases 3, 4 and 13 and, with ``--all-cards`` too, phase ``cards`` (whose
@@ -248,6 +250,29 @@ wgs (``--wgs`` only) -- the JAX package's headline scale
    and outputs (checked first; ``<cache>/wgs.vgt`` may link the index to
    another file system) and about 25-30 minutes.
 
+wgs_filt (``--wgs --filt`` only) -- the paper's workflow (index, filt,
+   geno; docs/WORKFLOWS.md:16-22) at phase wgs's scale and draw, on one
+   card: (a) synthesis and the bucketed build as ``--wgs`` does them (no
+   endurance reads); (b) ``python -m vargeno_tpu_torch.cli filt`` on that
+   index into ``<cache>/wgs_filt`` (the rehearsal tool's ``--filt``, a
+   process of its own; the streamed filt of index/filt.py): its seconds,
+   peak RSS, kept ref rows and bytes on disk; (c) the filtered index
+   mmap'd and placed at D = 1 on cuda:0, the 262,144 reads streamed at
+   batch_reads 32768 with no overflow left and the vote kernel launched
+   (its count set to 0 just before the stream, read just after), forward
+   and retry batches (most reads fail both orientations on a filtered
+   index, as in the reference), the VCF, the bare vote launch on the
+   first batch's records equal to the plain version and timed, oracle
+   spot parity (2,048 sampled reads against the oracle on the filtered
+   index, every site equal); (d) ``geno ... --mesh 1 --sharded-dict``
+   through the command line (``--cli-rank``) on the filtered index and
+   the same reads, its VCF byte-identical to (c)'s, the vote launched.
+   The hash table of the filtered index does not fit the card (PERF.md).
+   A stage whose peak RSS reaches MemTotal fails the phase. Prints a
+   ``{"wgs_filt": ...}`` line. Needs phase wgs's disk for the index,
+   inputs and outputs, and ~18 GB more beside the inputs for the filtered
+   index (checked first), and about 22 minutes.
+
 cards (``--all-cards`` only) -- the 48 Mb workload, untuned, two passes a
    runner (the second warm), every VCF equal to the one-card hash-table
    pass's: one process driving every card (replicated index: the shard
@@ -365,6 +390,10 @@ WGS3_DUP_SHARE = 0.0
 # free bytes the index, and the inputs and outputs, need (the index may
 # lie on another file system: <cache>/wgs.vgt may link to a directory)
 WGS3_INDEX_DISK, WGS3_IO_DISK = 47e9, 6e9
+# --wgs --filt: the paper's workflow at that scale (index, filt, geno),
+# the filtered index at D = 1 on one card; the free bytes the filtered
+# index (<cache>/wgs_filt.vgt, beside the inputs) needs
+WGS3_FILT_DEVICES, WGS3_FILT_DISK = "cuda:0", 18e9
 # phase pipeline: the (pipeline_depth, group_size, pre_encode) points, the
 # first the reference of the others' VCFs; timed passes a point; the reads
 # of its 2-process run
@@ -2727,7 +2756,8 @@ def sharded_genome_checks(tag: str, card: str, index, fq: str, mesh, cfg,
         vote_launches=launches, escalations=runner.n_escalations,
         route_overflow=runner.stats_totals["route_overflow"],
         final_route_factor=runner._cfg_run.route_factor,
-        retry_reads=runner.n_retry_reads, stats=got["stats"],
+        retry_reads=runner.n_retry_reads,
+        retry_batches=runner.n_retry_batches, stats=got["stats"],
         **aux_rows(index), card_aux_bytes=aux_bytes(runner),
         **amb_summary(runner, got["first_attempt"]))
     log(tag, f"[{card}] sharded dictionary, D = {out['shards']}: streamed "
@@ -3221,11 +3251,12 @@ def wgs_dir() -> str:
                         f"wgs{WGS3_MB}mb_{WGS3_SNPS}snp_{WGS_READS}r{dup}")
 
 
-def wgs_setup(tag: str, card: str, devices: str):
+def wgs_setup(tag: str, card: str, devices: str, filt: bool = False):
     """The headline scale's directory, index prefix and reads, and the
     host (processors, MemTotal, free disk) logged; before a build, the
     free disk for the index (``<dir>/wgs.vgt`` may link to another file
-    system) and for the inputs and outputs is checked."""
+    system) and for the inputs and outputs is checked, and with ``filt``
+    always that for the filtered index beside them."""
     import shutil
 
     from vargeno_tpu_torch.index import store
@@ -3241,30 +3272,35 @@ def wgs_setup(tag: str, card: str, devices: str):
              f"{host['nproc']} processors, MemTotal {host['mem_total']} B, "
              f"free disk {host['disk_free']} B")
     vgt = os.path.realpath(prefix + ".vgt")
+    wants = [(d, WGS3_FILT_DISK)] if filt else []
     if not store.exists(prefix):
-        need = {}   # file system -> (a path on it, bytes needed)
-        for path, n in ((d, WGS3_IO_DISK),
-                        (vgt if os.path.isdir(vgt) else d, WGS3_INDEX_DISK)):
-            p0, n0 = need.get(os.stat(path).st_dev, (path, 0))
-            need[os.stat(path).st_dev] = (p0, n0 + n)
-        for path, n in need.values():
-            free = shutil.disk_usage(path).free
-            if free < n:
-                raise RuntimeError(f"{tag}: {free} B free under {path}, the "
-                                   f"run needs {n:.0f}")
+        wants += [(d, WGS3_IO_DISK),
+                  (vgt if os.path.isdir(vgt) else d, WGS3_INDEX_DISK)]
+    need = {}   # file system -> (a path on it, bytes needed)
+    for path, n in wants:
+        p0, n0 = need.get(os.stat(path).st_dev, (path, 0))
+        need[os.stat(path).st_dev] = (p0, n0 + n)
+    for path, n in need.values():
+        free = shutil.disk_usage(path).free
+        if free < n:
+            raise RuntimeError(f"{tag}: {free} B free under {path}, the "
+                               f"run needs {n:.0f}")
     log(tag, f"inputs and outputs in {d}, the index in {vgt}")
     return d, prefix, os.path.join(d, "reads.fq"), host
 
 
-def start_wgs_index():
+def start_wgs_index(filt: bool = False):
     """The headline scale's synthesis (the reads and the endurance reads
     too; repeat-rich at WGS3_DUP_SHARE) and index build: the rehearsal
-    tool's command line in a session of its own (host only)."""
+    tool's command line in a session of its own (host only). With
+    ``filt``, the tool then runs ``filt`` through the CLI in a process of
+    its own (``--filt``), and no endurance reads are drawn."""
+    more = (["--filt"] if filt
+            else ["--extra-reads", WGS_EXTRA_READS])
     return start_session(tool_command(
         "rehearse_wgs", "--phase", "index", "--mb", WGS3_MB, "--snps",
         WGS3_SNPS, "--reads", WGS_READS, "--dup-share", WGS3_DUP_SHARE,
-        "--extra-reads", WGS_EXTRA_READS, "--cache", wgs_dir(),
-        "--progress-every", 0))
+        *more, "--cache", wgs_dir(), "--progress-every", 0))
 
 
 def check_sites(tag: str, n_sites: int) -> None:
@@ -3361,8 +3397,128 @@ def phase_wgs(card: str) -> dict:
     return out
 
 
+def phase_wgs_filt(card: str) -> dict:
+    """``--wgs --filt``: the paper's workflow (index, filt, geno) at the
+    headline scale on one card (see the module's docstring): (a) synthesis
+    and the bucketed build and (b) ``filt`` through the CLI, each in the
+    rehearsal tool's process (``--filt``) and a process of the CLI's own;
+    (c) the filtered index mmap'd, placed at D = 1 on WGS3_FILT_DEVICES
+    and streamed (``sharded_genome_checks``: no overflow left, the vote
+    kernel launched, the VCF, oracle spot parity over every site against
+    the oracle on the filtered index), the bare vote launch on the first
+    batch's records; (d) ``geno`` through the CLI on the filtered index
+    and the same reads (``--cli-rank``), its VCF byte-identical to (c)'s.
+    Each stage's peak RSS must stay under the host's MemTotal. The hash
+    table of the filtered index is not run: it does not fit the card
+    (PERF.md)."""
+    import shutil
+
+    from vargeno_tpu_torch.dist.sharding import make_mesh
+    from vargeno_tpu_torch.index import store
+    from vargeno_tpu_torch.tools import rehearse_wgs
+
+    tag = "wgs_filt"
+    t_phase = time.perf_counter()
+    # (b) is measured in every run: a prior filtered index is cleared
+    # first (behind the link, where <dir>/wgs_filt.vgt is one)
+    fvgt = os.path.realpath(os.path.join(wgs_dir(), "wgs_filt.vgt"))
+    for name in os.listdir(fvgt) if os.path.isdir(fvgt) else ():
+        path = os.path.join(fvgt, name)
+        if os.path.isdir(path) and not os.path.islink(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+    d, prefix, fq, host = wgs_setup(tag, card, WGS3_FILT_DEVICES, filt=True)
+    fprefix = os.path.join(d, "wgs_filt")
+
+    # (a) synthesis and the index build, (b) filt through the CLI
+    t0 = time.perf_counter()
+    prep = finish_tool(start_wgs_index(filt=True), 3000, tag,
+                       ("index", "filt"))
+    prep_s = time.perf_counter() - t0
+    if "filt" not in prep:
+        raise AssertionError(f"{tag}: the tool printed no filt line")
+    fl = prep["filt"]
+    stages = dict(fl["stage_peak_rss"])
+    log(tag, f"[{card}] filt (the CLI, a process of its own): kept "
+             f"{fl['kept_rows']} of {fl['ref_rows']} ref rows (share "
+             f"{fl['kept_share']:.4f}) in {fl['filt_s']:.2f} s at a peak "
+             f"RSS of {fl['peak_rss']} B ({fl['rss_before']} B as the "
+             f"filt started, after its imports); the filtered index "
+             f"{fl['disk_bytes']} B on disk; synthesis, build and filt "
+             f"{prep_s:.1f} s")
+
+    # (c) the filtered index at D = 1
+    t0 = time.perf_counter()
+    with rehearse_wgs.stage_rss(stages, "load"):
+        index = store.load(fprefix)
+    load_s = time.perf_counter() - t0
+    n_sites = int(index.sites.pos.shape[0])
+    n_ref = int(index.ref.kmers.shape[0])
+    if n_ref != fl["kept_rows"]:
+        raise AssertionError(f"{tag}: {n_ref} ref rows loaded, filt kept "
+                             f"{fl['kept_rows']}")
+    check_sites(tag, n_sites)
+    vcf_in = os.path.join(d, "snps.vcf")
+    vcf_c = os.path.join(d, "wgs_filt_c.vcf")
+    sharded, first = sharded_genome_checks(
+        tag, card, index, fq,
+        make_mesh(devices=WGS3_FILT_DEVICES.split(",")),
+        rehearse_wgs.geno_config(BATCH), stages, vcf=(vcf_in, vcf_c))
+    forward = -(-WGS_READS // BATCH)
+    log(tag, f"[{card}] batches: {forward} forward, "
+             f"{sharded['retry_batches']} of retries "
+             f"({sharded['retry_reads']} reads re-run reverse-complemented)")
+    del index
+    gc.collect()
+    vote_on_step = time_vote_on_step(tag, card, *first)
+    del first
+
+    # (d) geno through the CLI on the filtered index, the same reads
+    vcf_d = os.path.join(d, "wgs_filt_d.vcf")
+    _, lines, _, wall_s = run_cluster_leg(
+        f"{tag} (d)", [worker_command("--cli-rank", dict(
+            tag=f"{tag} (d)", argv=[
+                "geno", fprefix, fq, vcf_in, vcf_d, "--device", DEVICE,
+                "--mesh", str(len(WGS3_FILT_DEVICES.split(","))),
+                "--sharded-dict", "--batch-reads", str(BATCH)]))],
+        "cli_rank", 1500)
+    cli = lines[0][0]
+    with open(vcf_c, "rb") as f, open(vcf_d, "rb") as g:
+        same = f.read() == g.read()
+    stages.update({f"(d) {k}": v for k, v in cli["stage_peak_rss"].items()})
+    log(tag, f"[{card}] geno through the CLI on the filtered index: VCF "
+             + ("byte-identical to (c)'s" if same else "DIFFERS from (c)'s")
+             + f"; placement {cli['stage_s']['placement']:.2f} s, stream "
+             f"{cli['stage_s']['geno']:.2f} s, VCF "
+             f"{cli['stage_s']['vcf']:.2f} s, process {cli['seconds']:.1f} "
+             f"s (wall {wall_s:.1f} s); vote launches "
+             f"{cli['vote_launches']}, escalations {cli['escalations']}, "
+             f"index {cli['index_bytes']} B, peak device memory "
+             f"{cli['card_peak_bytes']} B, peak RSS {cli['stage_peak_rss']}")
+    if not same or cli["rc"] or cli["overflow"] or cli["vote_launches"] <= 0:
+        raise AssertionError(f"{tag} (d): VCF equal {same}, {cli}")
+    over = {k: v for k, v in stages.items() if v >= host["mem_total"]}
+    if over:
+        raise AssertionError(f"{tag}: stages at the host's MemTotal "
+                             f"({host['mem_total']} B): {over}")
+    out = dict(
+        card=card, mb=WGS3_MB, snps=WGS3_SNPS, reads=WGS_READS,
+        dup_share=WGS3_DUP_SHARE, batch_reads=BATCH,
+        devices=WGS3_FILT_DEVICES, host=host, index=prep.get("index"),
+        filt=fl, prep_s=prep_s, load_s=load_s, ref_rows=n_ref,
+        forward_batches=forward, sharded=sharded, vote_on_step=vote_on_step,
+        cli=dict(wall_s=wall_s, vcf_equal=same, **cli),
+        stage_peak_rss=stages, seconds=time.perf_counter() - t_phase)
+    log(tag, f"[{card}] peak RSS by stage (B): {json.dumps(stages)}; "
+             f"phase wgs_filt {out['seconds']:.1f} s")
+    return out
+
+
 def cli_rank(spec: dict) -> int:
-    """``--cli-rank SPEC``: one process of a cluster run through the port's
+    """``--cli-rank SPEC``: one process of a cluster (or, without
+    ``--multihost`` in its arguments, a single-process sharded-dictionary
+    run) through the port's
     command line, ``vargeno_tpu_torch.cli.main(spec["argv"])`` (what
     ``python -m vargeno_tpu_torch.cli`` runs), with its runner's
     construction (the placement), stream and VCF timed and their peak RSS
@@ -3374,6 +3530,7 @@ def cli_rank(spec: dict) -> int:
     sys.path.insert(0, ROOT)
     from vargeno_tpu_torch import cli
     from vargeno_tpu_torch.dist import multihost
+    from vargeno_tpu_torch.dist.sharded_dict import ShardedDictGenoRunner
     from vargeno_tpu_torch.kernels.vote import vote_scan_records as vote_fn
     from vargeno_tpu_torch.tools.bench_scaling import peak_bytes
     from vargeno_tpu_torch.tools.rehearse_wgs import (record_first_attempt,
@@ -3395,8 +3552,10 @@ def cli_rank(spec: dict) -> int:
             return got
         setattr(cls, name, run)
 
-    for cls in (multihost.MultiHostDictGenoRunner,
-                multihost.MultiHostGenoRunner):
+    for cls in ((multihost.MultiHostDictGenoRunner,
+                 multihost.MultiHostGenoRunner)
+                if "--multihost" in spec["argv"]
+                else (ShardedDictGenoRunner,)):
         timed(cls, "__init__", "placement")
         timed(cls, "consume_fastq", "geno")
         timed(cls, "write_vcf", "vcf")
@@ -3406,7 +3565,8 @@ def cli_rank(spec: dict) -> int:
     runner = seen["runner"]
     cards = list(dict.fromkeys(runner.mesh.devices))
     print(json.dumps({"cli_rank": dict(
-        tag=spec["tag"], rank=runner.cluster.rank, rc=rc,
+        tag=spec["tag"],
+        rank=runner.cluster.rank if hasattr(runner, "cluster") else 0, rc=rc,
         seconds=time.perf_counter() - t0, stage_s=secs,
         stage_peak_rss=stages, vote_launches=vote_fn.launches,
         cards=[str(c) for c in cards], reads=runner.n_reads,
@@ -4134,10 +4294,10 @@ def main() -> int:
     elif argv and sorted(argv) not in (
             ["--all-cards"], ["--wgs"], ["--wgs-cards"],
             ["--all-cards", "--wgs-cards"], ["--repeats", "--wgs"],
-            ["--repeats", "--wgs-cards"]):
+            ["--repeats", "--wgs-cards"], ["--filt", "--wgs"]):
         print("usage: chip_smoke.py [--parent DIR | --all-cards | --wgs "
-              "[--repeats] | --wgs-cards [--repeats] | --all-cards "
-              "--wgs-cards]", file=sys.stderr)
+              "[--repeats | --filt] | --wgs-cards [--repeats] | "
+              "--all-cards --wgs-cards]", file=sys.stderr)
         return 2
     try:
         import numpy as np
@@ -4197,6 +4357,15 @@ def main() -> int:
         cards = phase_cards(card)
         log("done", f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"cards": {"card": card, **cards}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if sorted(argv) == ["--filt", "--wgs"]:
+        wgs_filt = phase_wgs_filt(card)
+        log("done", f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"wgs_filt": wgs_filt}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

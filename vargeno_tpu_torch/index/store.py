@@ -1,9 +1,12 @@
 """Jax-free port of ``vargeno_tpu/index/store.py``, no longer a pure copy:
 ``save_dir`` also drops the port's own derived-table cache
-(``derived_torch/``) of a prior index, ``exists`` needs the directory's
-meta.json (written last), ``load_dir`` keeps ``snp_locations`` mapped, and
-``read_rows`` reads a chunk of a memory-mapped column from its file. The arrays it writes must equal the
-JAX ``build_index``'s (tests/test_torch_wgs_stream.py).
+(``derived_torch/``) and the meta.json of a prior index, and is split into
+``begin_dir``, ``dir_values`` and ``write_meta``, which the streamed
+``filt`` shares; ``exists`` needs the directory's meta.json (written
+last), ``load_dir`` keeps ``snp_locations`` mapped, and ``read_rows``
+reads a chunk of a memory-mapped column from its file. The arrays it
+writes must equal the JAX ``build_index``'s
+(tests/test_torch_wgs_stream.py).
 
 Index persistence and interop with the reference's on-disk formats.
 
@@ -189,24 +192,9 @@ _DIR_ARRAYS = dict(
 )
 
 
-def save_dir(prefix: str, index: VarGenoIndex) -> None:
-    """``<prefix>.vgt/``: one raw .npy per array + meta.json.
-
-    Unlike the single-zip .vgt.npz, raw .npy files load with
-    ``np.load(mmap_mode='r')`` in ~0 time -- the OS pages data in on first
-    touch, so geno startup skips the ~15 s zip extraction entirely."""
-    import json
-    import os
-
-    d = prefix + ".vgt"
-    os.makedirs(d, exist_ok=True)
-    for sub in ("derived", "derived_torch"):
-        derived = os.path.join(d, sub)
-        if os.path.isdir(derived):  # stale table cache of a prior index
-            import shutil
-
-            shutil.rmtree(derived)
-    vals = dict(
+def dir_values(index: VarGenoIndex) -> dict:
+    """The arrays ``save_dir`` writes, by ``_DIR_ARRAYS`` key."""
+    return dict(
         ref_kmers=index.ref.kmers, ref_pos=index.ref.pos,
         ref_flag=index.ref.flag, ref_aux=index.ref.aux,
         snp_kmers=index.snp.kmers, snp_pos=index.snp.pos,
@@ -223,14 +211,53 @@ def save_dir(prefix: str, index: VarGenoIndex) -> None:
         site_alt=index.sites.alt, site_rf=index.sites.rf,
         site_af=index.sites.af,
     )
-    for key, fname in _DIR_ARRAYS.items():
-        np.save(os.path.join(d, fname + ".npy"), vals[key])
+
+
+def begin_dir(d: str) -> None:
+    """Make the index directory ``d`` ready for its arrays: a table cache
+    of a prior index there is removed, and so is its meta.json, so that
+    the directory counts as an index (``exists``) only once the new
+    meta.json is written, last."""
+    import os
+    import shutil
+
+    os.makedirs(d, exist_ok=True)
+    for sub in ("derived", "derived_torch"):
+        derived = os.path.join(d, sub)
+        if os.path.isdir(derived):  # stale table cache of a prior index
+            shutil.rmtree(derived)
+    meta = os.path.join(d, "meta.json")
+    if os.path.exists(meta):
+        os.remove(meta)
+
+
+def write_meta(d: str, index: VarGenoIndex) -> None:
+    """The index directory ``d``'s meta.json, written last."""
+    import json
+    import os
+
     meta = dict(version=1,
                 ref_bf_bits=int(index.ref_bf.bits),
                 snp_bf_bits=int(index.snp_bf.bits),
                 chrlens=[[n, int(l)] for n, l in index.chrlens])
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump(meta, f)
+
+
+def save_dir(prefix: str, index: VarGenoIndex) -> None:
+    """``<prefix>.vgt/``: one raw .npy per array + meta.json.
+
+    Unlike the single-zip .vgt.npz, raw .npy files load with
+    ``np.load(mmap_mode='r')`` in ~0 time -- the OS pages data in on first
+    touch, so geno startup skips the ~15 s zip extraction entirely."""
+    import os
+
+    d = prefix + ".vgt"
+    begin_dir(d)
+    vals = dir_values(index)
+    for key, fname in _DIR_ARRAYS.items():
+        np.save(os.path.join(d, fname + ".npy"), vals[key])
+    write_meta(d, index)
 
 
 def load_dir(prefix: str, mmap: bool = True) -> VarGenoIndex:

@@ -16,7 +16,7 @@ MemTotal as the run found them (``host``).
         [--snps 5000000] [--reads 65536] [--dup-share 0.0] [--cache DIR]
         [--phase all]
         [--runner sharded|ht] [--device cuda] [--devices cuda:0,...]
-        [--extra-reads N] [--spot-parity N] [--checkpoint P]
+        [--extra-reads N] [--spot-parity N] [--checkpoint P] [--filt]
 
 The inputs come from the same generator draws as the JAX tool's and are
 the same bytes: the FASTA (written in chunks), the VCF, and the FASTQ of
@@ -31,9 +31,13 @@ before they are written, so that its dictionaries hold aux rows (k-mers of
 
 Phases: ``gen`` writes the inputs (and ``reads_{N}.fq`` with
 ``--extra-reads N``), ``index`` also builds the index, ``geno`` (and
-``all``) also genotypes. The engine runs on the card unless ``--device
-cpu`` is asked for. The end of ``index`` and of ``geno`` prints one JSON
-line each (``{"index": ...}``, ``{"geno": ...}``) with what it measured.
+``all``) also genotypes. ``--filt`` runs the ``filt`` subcommand after
+``index``, in a process of its own, into ``<cache>/wgs_filt``, and
+genotypes that index instead (the oracle's spot parity too). The engine
+runs on the card unless ``--device cpu`` is asked for. The end of
+``index`` and of ``geno`` prints one JSON line each (``{"index": ...}``,
+``{"geno": ...}``; ``{"filt": ...}`` after the filt) with what it
+measured.
 """
 
 from __future__ import annotations
@@ -303,6 +307,61 @@ def dir_bytes(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
+# the CLI's filt in a process of its own, which prints its peak RSS
+# (``stage_rss``'s) and its RSS as the filt starts, after its imports
+# (torch among them), last: on the H100 host, another process's /proc/<pid>/status gave no
+# peak, and a child's own ru_maxrss starts from its parent's
+FILT_CHILD = """import sys
+from vargeno_tpu_torch import cli
+from vargeno_tpu_torch.index import filt  # its imports (torch) come first
+from vargeno_tpu_torch.tools.rehearse_wgs import _vm_rss, stage_rss
+got, before = {}, _vm_rss()
+with stage_rss(got, "filt"):
+    rc = cli.main(["filt"] + sys.argv[1:])
+print("peak RSS", got["filt"], before)
+sys.exit(rc)
+"""
+
+
+def filt_is_current(prefix: str, out_prefix: str) -> bool:
+    """``out_prefix``'s index is there and was written after ``prefix``'s
+    (its meta.json, written last, is not older): a filt of that index."""
+    metas = [os.path.join(p + ".vgt", "meta.json")
+             for p in (prefix, out_prefix)]
+    return all(map(os.path.isfile, metas)) and \
+        os.path.getmtime(metas[1]) >= os.path.getmtime(metas[0])
+
+
+def run_filt(prefix: str, out_prefix: str, stages: dict) -> dict:
+    """The CLI's ``filt prefix out_prefix`` (``vargeno_tpu_torch.cli``'s
+    ``main``, what ``python -m vargeno_tpu_torch.cli filt`` runs) in a
+    process of its own (its peak RSS as ``stages["filt"]``): its seconds,
+    the ref rows before and kept (and their share), the process's RSS as
+    the filt started (``rss_before``: the interpreter and its imports) and
+    the filtered index's bytes on disk."""
+    import subprocess
+
+    from ..index import store
+
+    rows = int(store.load(prefix).ref.kmers.shape[0])
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", FILT_CHILD, prefix,
+                           out_prefix], stdout=subprocess.PIPE, text=True)
+    seconds = time.perf_counter() - t0
+    lines = done.stdout.splitlines()
+    if done.returncode or not lines or not lines[-1].startswith("peak RSS"):
+        raise RuntimeError(f"filt exited {done.returncode}: {done.stdout}")
+    peak, before = map(int, lines[-1].split()[-2:])
+    stages["filt"] = peak
+    kept = int(store.load(out_prefix).ref.kmers.shape[0])
+    if f"New size: {kept}" not in lines:
+        raise RuntimeError(f"filt printed {done.stdout!r}, its index holds "
+                           f"{kept}")
+    return dict(ref_rows=rows, kept_rows=kept, kept_share=kept / rows,
+                filt_s=seconds, peak_rss=peak, rss_before=before,
+                disk_bytes=dir_bytes(out_prefix + ".vgt"))
+
+
 def geno_config(batch: int):
     """The tool's engine config (the JAX tool's): 128-base reads, 4 k-mer
     slots, 24 events a read; overflow escalation keeps it exact."""
@@ -501,6 +560,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--limit-batches", type=int, default=2,
                     help="stop after N batches (0: the whole stream)")
+    ap.add_argument("--filt", action="store_true",
+                    help="after index, run filt (the CLI, in a process of "
+                         "its own) into <cache>/wgs_filt and genotype "
+                         "that index")
     ap.add_argument("--phase", default="all",
                     choices=["all", "gen", "index", "geno"])
     ap.add_argument("--checkpoint", default=None,
@@ -566,6 +629,20 @@ def main(argv=None) -> int:
             peak_rss_bytes=peak_rss(), stage_peak_rss=stages,
             host=host)}), flush=True)
         del built
+    if args.filt:
+        fprefix = os.path.join(args.cache, "wgs_filt")
+        if args.phase in ("all", "index") and not filt_is_current(
+                prefix, fprefix):
+            log("filt: start")
+            got = run_filt(prefix, fprefix, stages)
+            log(f"filt: kept {got['kept_rows']} of {got['ref_rows']} ref "
+                f"rows in {got['filt_s']:.1f} s (peak RSS "
+                f"{got['peak_rss']} B, {got['rss_before']} B as it "
+                f"started)")
+            print(json.dumps({"filt": dict(
+                mb=args.mb, snps=args.snps, dup_share=args.dup_share, **got,
+                stage_peak_rss=stages, host=host)}), flush=True)
+        prefix = fprefix
     if args.phase == "index":
         return 0
 

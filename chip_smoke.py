@@ -99,11 +99,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bench phase's gather rates handed over through its cache; its JSON
    line is printed with the card's name and power limit; at least 5
    passes, no overflow, the vote kernel launched, both roofline fractions
-   in (0, 1.05]), ``bench_cohort --donors 8``, ``profile_step`` (the
-   stage table of the first forward batch) and ``trace_step`` (a steady
-   pass under torch.profiler: device operations, the device's idle share,
-   the top kernels). The bench's and every donor's counts must equal the
-   real phase's at every site.
+   in (0, 1.05]) and ``bench_cohort --donors 8``. The bench's and every
+   donor's counts must equal the real phase's at every site.
 9. routed -- the same workload, untuned, through the sharded-dictionary
    runner at D = 1 and D = 2 once the hash-table index is freed: counts
    equal to the hash-table pass's, no overflow, the vote kernel launched;
@@ -1830,11 +1827,8 @@ def phase_geno_bench(card: str, gather_rates: dict, real: dict) -> dict:
     index (nothing built again), each a user's command line in a process of
     its own, alone on the card: (a) ``tools.bench`` (the headline reads/s
     line; the bench phase's gather rates handed over through its cache);
-    (b) ``tools.bench_cohort --donors 8``; (c) ``tools.profile_step`` (the
-    stage table of the first forward batch); (d) ``tools.trace_step`` (a
-    steady pass under torch.profiler: device operations, idle share, top
-    kernels). The bench's and every donor's counts must equal phase real's
-    at every site."""
+    (b) ``tools.bench_cohort --donors 8``. The bench's and every donor's
+    counts must equal phase real's at every site."""
     import numpy as np
     import torch
 
@@ -1884,35 +1878,10 @@ def phase_geno_bench(card: str, gather_rates: dict, real: dict) -> dict:
     for i in range(GENO_BENCH_DONORS):
         same(f"cohort donor d{i}", got[f"ref_d{i}"], got[f"alt_d{i}"])
 
-    t0 = time.perf_counter()
-    text = run_tool("geno_bench", "profile_step", [], env, 300)
-    profile_s = time.perf_counter() - t0
-    for row in text.strip().splitlines()[:-1]:
-        log("geno_bench", f"profile_step: {row}")
-    profile = last_json(text)["profile_step"]
-
-    t0 = time.perf_counter()
-    text = run_tool("geno_bench", "trace_step", [], env, 600)
-    trace_s = time.perf_counter() - t0
-    for row in text.strip().splitlines()[:-1][:24]:
-        log("geno_bench", f"trace_step: {row}")
-    tr = last_json(text)["trace_step"]
-    if not (tr["device_ops"] > 0 and 0 <= tr["idle_share"] < 1):
-        raise AssertionError(f"geno_bench: trace {tr['device_ops']} device "
-                             f"operations, idle share {tr['idle_share']}")
-    out = dict(card=card, bench=line, cohort=cohort, profile=profile,
-               trace={k: tr[k] for k in ("reads", "pass_s", "device_ops",
-                                         "device_busy_us", "window_us",
-                                         "idle_share")},
-               top_kernels=tr["device_by_name"][:10],
-               tool_s=dict(bench=bench_s, cohort=cohort_s,
-                           profile=profile_s, trace=trace_s),
+    out = dict(card=card, bench=line, cohort=cohort,
+               tool_s=dict(bench=bench_s, cohort=cohort_s),
                seconds=time.perf_counter() - t_phase)
-    log("geno_bench", f"[{card}] idle share of a steady pass "
-                      f"{tr['idle_share']} ({tr['device_ops']} device "
-                      f"operations, {tr['device_busy_us'] / 1e3:.1f} ms busy "
-                      f"in {tr['window_us'] / 1e3:.1f} ms); phase geno_bench "
-                      f"{out['seconds']:.1f} s")
+    log("geno_bench", f"[{card}] phase geno_bench {out['seconds']:.1f} s")
     return out
 
 

@@ -1,6 +1,6 @@
 """The port's measurement entry points (``vargeno_tpu_torch/tools``: bench,
-bench_cohort, bench_index_build, profile_step, trace_step,
-summarize_trace) and the CLI pieces they brought, on the CPU at a tiny
+bench_cohort, bench_index_build) and the CLI pieces they brought, on the
+CPU at a tiny
 workload (0.2 Mb, 2,000 SNPs, 4,096 reads, batch 512). Counts are held
 exactly against the JAX package's runners on the same files and index
 (``jax_view``), and index files byte for byte against the JAX CLI's."""
@@ -23,15 +23,11 @@ from vargeno_tpu.engine.geno import GenoRunner as JRunner
 from vargeno_tpu.index import build as j_build
 from vargeno_tpu_torch import cli
 from vargeno_tpu_torch.config import GenoConfig
-from vargeno_tpu_torch.engine.batch import make_batch_processor
 from vargeno_tpu_torch.engine.device_index import build_device_index
-from vargeno_tpu_torch.engine.geno import GenoRunner, _encoder, upload
+from vargeno_tpu_torch.engine.geno import GenoRunner
 from vargeno_tpu_torch.index import build as t_build
 from vargeno_tpu_torch.index import store
-from vargeno_tpu_torch.io.fastq import iter_read_batches
-from vargeno_tpu_torch.tools import (bench, bench_cohort, bench_index_build,
-                                     profile_step, summarize_trace,
-                                     trace_step)
+from vargeno_tpu_torch.tools import bench, bench_cohort, bench_index_build
 from vargeno_tpu_torch.tools.bench_gather import bench as gather_bench
 
 torch.set_num_threads(2)
@@ -431,67 +427,8 @@ def test_cli_genotype_is_a_noop_as_in_jax(capsys):
     assert ours.out == theirs.out == ""
 
 
-# --- profile_step, trace_step, summarize_trace ---
-
-def test_profile_step_prints_every_stage_and_equals_single_enc(wl, capsys):
-    assert profile_step.main(["--device", "cpu", "--reps", "2"]) == 0
-    text = capsys.readouterr().out
-    res = _last_json(text)["profile_step"]
-    for name, _ in profile_step.STAGES:
-        assert name in text
-        assert res["stages"][name]["ms"] is not None
-    st = res["stages"]
-    top = [n for n, depth in profile_step.STAGES
-           if depth == 1 and n != "remainder"]
-    assert st["remainder"]["ms"] == pytest.approx(
-        st["single_enc"]["ms"] - sum(st[n]["ms"] for n in top), abs=1e-3)
-    # the whole step's counts: single_enc on the first forward batch
-    cfg = bench.bench_config(wl)
-    dix = build_device_index(store.load(wl.prefix), "cpu",
-                             cfg.ht_target_load)
-    b = next(iter(iter_read_batches(wl.fq, cfg.batch_reads,
-                                    cfg.max_read_len,
-                                    cfg.max_kmers_per_read)))
-    args = upload(torch.device("cpu"),
-                  _encoder(cfg.max_kmers_per_read)(b.codes, b.n_kmers),
-                  b.qual)
-    z = torch.zeros(dix.n_sites + 1, dtype=torch.int32)
-    rc, ac, process, _, _ = make_batch_processor(dix, cfg).single_enc(
-        *args, z, torch.zeros_like(z))
-    assert res["counts"] == {"ref": int(rc.sum()), "alt": int(ac.sum()),
-                             "processed": int(process.sum())}
-    assert res["counts"]["processed"] > 0
-    assert res["shapes"]["B"] == cfg.batch_reads
-
-
-def test_summarize_trace_idle_share_of_synthetic_events():
-    ev = [dict(ph="X", cat="cpu_op", name="aten::add", ts=0, dur=100),
-          dict(ph="X", cat="kernel", name="k1", ts=10, dur=20),
-          dict(ph="X", cat="kernel", name="k1", ts=20, dur=20),   # overlaps
-          dict(ph="X", cat="gpu_memcpy", name="Memcpy HtoD", ts=60, dur=10),
-          dict(ph="X", cat="gpu_user_annotation", name="span", ts=0,
-               dur=100),
-          dict(ph="i", cat="kernel", name="instant", ts=5)]
-    s = summarize_trace.summarize(ev)
-    assert s["device_ops"] == 3 and s["device_busy_us"] == 40
-    assert s["window_us"] == 100 and s["idle_share"] == 0.6
-    assert s["device_by_name"][0] == ("k1", 40.0, 2)
-    assert s["host_ops"] == 2
-
-
-def test_trace_of_a_host_pass_has_no_device_time(wl, tmp_path, capsys):
-    res = trace_step.trace(wl, "cpu", str(tmp_path))
-    assert res["reads"] == wl.reads and res["device_ops"] == 0
-    assert res["idle_share"] is None and res["host_ops"] > 1000
-    names = {n for n, _, _ in res["host_by_name"]}
-    assert "aten::index_put_" in names
-    # on its own the summary refuses a trace without device time
-    assert summarize_trace.main([res["trace"]]) == 1
-    assert "no device operation" in capsys.readouterr().err
-
-
 def test_tools_refuse_cuda_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for tool in (bench, bench_cohort, profile_step, trace_step):
+    for tool in (bench, bench_cohort):
         assert tool.main([]) == 1
         assert "no CUDA device" in capsys.readouterr().err

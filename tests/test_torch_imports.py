@@ -40,9 +40,6 @@ MODULES = [
     "vargeno_tpu_torch.tools.endurance_wgs",
     "vargeno_tpu_torch.tools.bench", "vargeno_tpu_torch.tools.bench_cohort",
     "vargeno_tpu_torch.tools.bench_index_build",
-    "vargeno_tpu_torch.tools.profile_step",
-    "vargeno_tpu_torch.tools.trace_step",
-    "vargeno_tpu_torch.tools.summarize_trace",
     "vargeno_tpu_torch.tools.bench_scaling",
     "vargeno_tpu_torch.tools.bench_scaling_mh",
     "vargeno_tpu_torch.tools.tune_host_pipeline",

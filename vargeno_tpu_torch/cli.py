@@ -7,6 +7,7 @@
       [--device cuda|cpu] [--mesh N [--sharded-dict]] [--batch-reads N]
       [--no-stride-bug]
       [--checkpoint PATH] [--limit-batches N] [--metrics PATH]
+      [--trace-dir DIR]
       [--no-auto-tune] [--inline-dual] [capacity flags]
       [--group-size G] [--pipeline-depth N] [--no-pre-encode]
       [--multihost HOST:PORT --num-processes P --process-id I
@@ -43,11 +44,19 @@ collectives go over ``--dist-backend`` (default nccl with cuda, gloo with
 cpu; NCCL takes one process a card, so a card named by two processes needs
 gloo). Every collective waits at most 300 s for a peer. Only process 0
 writes the VCF and the checkpoint.
+
+``geno --metrics PATH`` appends one json line at the end of the stream:
+reads, batches, seconds, reads/s, and ``stages``, the host loop's seconds
+by stage. ``geno --trace-dir DIR`` runs the stream and the VCF under
+``torch.profiler`` and writes ``DIR/trace.json`` (``trace.rank<r>.json``
+for each process under ``--multihost``): every thread's ``stage.*`` spans
+and the step's ``step.*`` spans beside the card's kernels and copies.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from .errors import InputError
@@ -192,7 +201,12 @@ def _parser():
                    help="stop after N host-loop batches (checkpoint "
                         "testing / partial runs)")
     p.add_argument("--metrics", default=None,
-                   help="append jsonl throughput metrics to this path")
+                   help="append jsonl throughput metrics (with the seconds "
+                        "by stage) to this path")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run "
+                        "to DIR/trace.json (trace.rank<r>.json a process "
+                        "under --multihost)")
     p.add_argument("--inline-dual", "--mh-inline-dual", dest="inline_dual",
                    action="store_true",
                    help="forward+reverse of every batch in one step (2x "
@@ -401,12 +415,20 @@ def _main(argv=None):
             from .engine.geno import GenoRunner
 
             runner = GenoRunner(index, cfg, device=args.device, **kw)
-        runner.consume_fastq(args.reads_fq,
-                             checkpoint_path=args.checkpoint,
-                             limit_batches=args.limit_batches)
-        if args.metrics and (cluster is None or cluster.rank == 0):
-            runner.meter.emit()
-        runner.write_vcf(args.snp_vcf, args.out_vcf)
+        tracing = contextlib.nullcontext()
+        if args.trace_dir:
+            from .utils import profiling
+
+            tracing = profiling.trace(args.trace_dir, "trace.json"
+                                      if cluster is None else
+                                      f"trace.rank{cluster.rank}.json")
+        with tracing:
+            runner.consume_fastq(args.reads_fq,
+                                 checkpoint_path=args.checkpoint,
+                                 limit_batches=args.limit_batches)
+            if args.metrics and (cluster is None or cluster.rank == 0):
+                runner.meter.emit(runner.timer.totals)
+            runner.write_vcf(args.snp_vcf, args.out_vcf)
         if cluster is not None:
             multihost.shutdown(cluster)
         return 0

@@ -181,7 +181,8 @@ class _MultiHostMixin:
         local = torch.tensor([[r[k] for k in keys] + [sig] for r in rows],
                              dtype=torch.int64)
         parts = [torch.empty_like(local) for _ in range(self.cluster.size)]
-        dist.all_gather(parts, local, group=self.cluster.ctrl)
+        with self.timer.stage("stats_gather"):
+            dist.all_gather(parts, local, group=self.cluster.ctrl)
         table = torch.cat(parts)
         if bool((table[:, -1] != sig).any()):
             raise RuntimeError("multihost stats desync: the processes' "
@@ -213,9 +214,11 @@ class _MultiHostMixin:
         barrier(self.cluster)
 
     def write_vcf(self, vcf_in: str, vcf_out: str) -> None:
-        calls = self.calls()   # collective (host_counts)
+        with self.timer.stage("vcf_calls"):
+            calls = self.calls()   # collective (host_counts)
         if self.cluster.rank == 0:
-            write_calls_vcf(vcf_in, vcf_out, calls)
+            with self.timer.stage("vcf_write"):
+                write_calls_vcf(vcf_in, vcf_out, calls)
         barrier(self.cluster)
 
     # --- the host loops ---
@@ -242,10 +245,13 @@ class _MultiHostMixin:
         (``len(inflight) > depth``), never on whether a batch has landed
         here, so every process makes the same collectives in the same
         order. Groups are not formed (as in JAX). ``limit_batches`` counts
-        forward batches."""
+        forward batches. The stages are GenoRunner's (``read_batch``,
+        ``dispatch``, ``retry_dispatch``, ``finalize_wait``), with
+        ``stats_gather`` inside ``finalize_wait``."""
         P, me, L = self.cluster.size, self.cluster.rank, self.local_D
         LB = self._loop_batch()
         depth = max(1, self.config.pipeline_depth)
+        st = self.timer
         batches, encode = self._batches(fastq_path, skip)
         pend = np.zeros(P, np.int64)
         queue: list = []   # this process's (codes, n_kmers, qual) segments
@@ -259,21 +265,23 @@ class _MultiHostMixin:
             inflight.append(p)
 
         def dispatch_retry():
-            take = np.minimum(pend, LB)
-            codes, nk, qual, got = self._take_queued(queue, LB)
-            if got != int(take[me]):
-                raise RuntimeError(
-                    f"multihost retry desync: the replicated stats say "
-                    f"{int(take[me])} reads are pending here, the local "
-                    f"queue held {got}")
-            pend[:] -= take
-            self.n_retry_reads += int(take.sum())
-            self.n_retry_batches += 1
-            launch(encode(codes, nk), qual, 0, None)
+            with st.stage("retry_dispatch"):
+                take = np.minimum(pend, LB)
+                codes, nk, qual, got = self._take_queued(queue, LB)
+                if got != int(take[me]):
+                    raise RuntimeError(
+                        f"multihost retry desync: the replicated stats say "
+                        f"{int(take[me])} reads are pending here, the local "
+                        f"queue held {got}")
+                pend[:] -= take
+                self.n_retry_reads += int(take.sum())
+                self.n_retry_batches += 1
+                launch(encode(codes, nk), qual, 0, None)
 
         def finalize_one():
             p = inflight.popleft()
-            process, read_ok = self._finalize(p)
+            with st.stage("finalize_wait"):
+                process, read_ok = self._finalize(p)
             self.meter.bump(p["count"])
             if p["host"] is None:
                 return
@@ -295,10 +303,16 @@ class _MultiHostMixin:
                     finalize_one()
 
         with batches as it:
-            for batch, enc in it:
+            while True:
+                with st.stage("read_batch"):
+                    item = next(it, None)
+                if item is None:
+                    break
+                batch, enc = item
                 self.n_reads += batch.global_n_valid
-                launch(enc, batch.qual, batch.global_n_valid,
-                       (batch.codes, batch.n_kmers, batch.qual))
+                with st.stage("dispatch"):
+                    launch(enc, batch.qual, batch.global_n_valid,
+                           (batch.codes, batch.n_kmers, batch.qual))
                 nb += 1
                 while len(inflight) > depth:
                     finalize_one()

@@ -49,6 +49,7 @@ from ..engine.batch import make_batch_processor
 from ..engine.device_index import (Stager, TorchDeviceIndex, _to_device,
                                    replicated_tables, scan_maxima)
 from ..index import store
+from ..utils.profiling import span
 from .sharding import Mesh, ShardedGenoRunner, device_bytes
 
 REF_TAIL = 9 * 99 + 1     # stride-bug read window beyond a block start
@@ -350,8 +351,8 @@ class RoutedBackend:
         self.scan_slots = self.ref_scan_slots = self.snp_scan_slots = \
             scan_slots
         self.route_factor = route_factor
-        self.route_overflow = torch.zeros((), dtype=torch.int64,
-                                          device=shard.ref_key.device)
+        self.route_overflow = None   # valid lanes dropped, from the first
+                                     # routed query on
 
     def _ref_owner(self, q_hi):
         return torch.searchsorted(self.shard.ref_bounds, q_hi,
@@ -361,45 +362,57 @@ class RoutedBackend:
         return torch.searchsorted(self.shard.snp_bounds24, q_hi >> 8,
                                   side="right") - 1
 
-    def _route(self, owner, valid, send_fields, answer_fn, R: int = 1):
-        """Route (N,) queries to their owners; lanes with valid False go
-        nowhere and read zero answers. ``answer_fn`` gets the D*Q received
-        queries' fields and returns its answer fields, R values a query,
+    def _route(self, is_ref: bool, q_hi, valid, send_fields, answer_fn,
+               R: int = 1):
+        """Route (N,) queries to the owners of their keys (``q_hi`` in the
+        ref or the SNP dictionary); lanes with valid False go nowhere and
+        read zero answers. ``answer_fn`` gets the D*Q received queries'
+        fields and returns its answer fields, R values a query,
         query-major. All fields ride one (D, Q, F) int64 buffer each way.
         Returns the answers ((N,) each, or (N, R)) and the count of valid
-        queries dropped for want of lanes."""
-        N = owner.shape[0]
+        queries dropped for want of lanes. The exchange on each side of
+        ``answer_fn`` is the span ``step.route``; the owner's search is
+        the caller's."""
+        N = q_hi.shape[0]
         D = self.D
-        dev = owner.device
+        dev = q_hi.device
         Q = max(16, -(-int(self.route_factor * N) // D))
-        owner = torch.where(valid, owner, D)   # invalid lanes -> bucket D
-        order = torch.argsort(owner, stable=True)
-        so = owner[order]
-        start = torch.searchsorted(so, torch.arange(D + 1, device=dev))
-        posg = torch.arange(N, device=dev) - start[so]
-        ok = posg < Q
-        slot = torch.where(ok, posg, Q)
         F = len(send_fields)
-        # row D and column Q are sinks for the lanes JAX drops
-        buf = torch.zeros((D + 1, Q + 1, F), dtype=torch.int64, device=dev)
-        buf[so, slot] = torch.stack([f.long() for f in send_fields],
-                                    -1)[order]
-        recv = self.mesh.all_to_all(self.rank, buf[:D, :Q])  # (D, Q, F)
-        answers = answer_fn(*recv.reshape(D * Q, F).unbind(1))
-        Fa = len(answers)
-        rows = torch.stack([a.long() for a in answers], -1)
-        back = self.mesh.all_to_all(self.rank, rows.reshape(D, Q * R, Fa))
-        back = back.reshape(D, Q, R, Fa)
+        with span("step.route"):
+            owner = self._ref_owner(q_hi) if is_ref else self._snp_owner(q_hi)
+            owner = torch.where(valid, owner, D)  # invalid lanes -> bucket D
+            order = torch.argsort(owner, stable=True)
+            so = owner[order]
+            start = torch.searchsorted(so, torch.arange(D + 1, device=dev))
+            posg = torch.arange(N, device=dev) - start[so]
+            ok = posg < Q
+            slot = torch.where(ok, posg, Q)
+            # row D and column Q are sinks for the lanes JAX drops
+            buf = torch.zeros((D + 1, Q + 1, F), dtype=torch.int64,
+                              device=dev)
+            buf[so, slot] = torch.stack([f.long() for f in send_fields],
+                                        -1)[order]
+            recv = self.mesh.all_to_all(self.rank, buf[:D, :Q])  # (D, Q, F)
+            recv = recv.reshape(D * Q, F).unbind(1)
+        answers = answer_fn(*recv)
+        with span("step.route"):
+            Fa = len(answers)
+            rows = torch.stack([a.long() for a in answers], -1)
+            back = self.mesh.all_to_all(self.rank,
+                                        rows.reshape(D, Q * R, Fa))
+            back = back.reshape(D, Q, R, Fa)
 
-        inv = torch.empty_like(slot)
-        inv[order] = slot
-        got = valid & (inv < Q)
-        got_rows = back[owner.clamp(max=D - 1), inv.clamp(max=Q - 1)]
-        got_rows = torch.where(got[:, None, None], got_rows, 0)  # (N, R, Fa)
-        outs = tuple(got_rows[:, 0, i] if R == 1 else got_rows[..., i]
-                     for i in range(Fa))
-        route_ovf = (~ok & (so < D)).sum()
-        self.route_overflow = self.route_overflow + route_ovf
+            inv = torch.empty_like(slot)
+            inv[order] = slot
+            got = valid & (inv < Q)
+            got_rows = back[owner.clamp(max=D - 1), inv.clamp(max=Q - 1)]
+            # (N, R, Fa)
+            got_rows = torch.where(got[:, None, None], got_rows, 0)
+            outs = tuple(got_rows[:, 0, i] if R == 1 else got_rows[..., i]
+                         for i in range(Fa))
+            route_ovf = (~ok & (so < D)).sum()
+            self.route_overflow = route_ovf if self.route_overflow is None \
+                else self.route_overflow + route_ovf
         return outs, route_ovf
 
     # --- exact queries ---
@@ -426,7 +439,7 @@ class RoutedBackend:
                                      sh.ref_owned, qh, ql, False)
 
         (hit, pos, flag), _ = self._route(
-            self._ref_owner(q_hi.reshape(-1)), v,
+            True, q_hi.reshape(-1), v,
             (q_hi.reshape(-1), q_lo.reshape(-1)), ans)
         return (hit != 0).reshape(shp), pos.reshape(shp), flag.reshape(shp)
 
@@ -442,7 +455,7 @@ class RoutedBackend:
                                      sh.snp_owned, qh, ql, True)
 
         (hit, pos, flag, info), _ = self._route(
-            self._snp_owner(q_hi.reshape(-1)), v,
+            False, q_hi.reshape(-1), v,
             (q_hi.reshape(-1), q_lo.reshape(-1)), ans)
         return ((hit != 0).reshape(shp), pos.reshape(shp),
                 info.reshape(shp), flag.reshape(shp))
@@ -459,16 +472,14 @@ class RoutedBackend:
                     - start.clamp(max=sh.ref_owned),)
 
         q = q_hi.reshape(-1)
-        (bs,), _ = self._route(self._ref_owner(q),
-                               torch.ones_like(q, dtype=torch.bool), (q,),
-                               ans)
+        (bs,), _ = self._route(True, q, torch.ones_like(q, dtype=torch.bool),
+                               (q,), ans)
         return bs.reshape(shp)
 
     # --- routed block scans ---
 
     def _scan(self, is_ref: bool, q_hi, q_lo, active) -> ScanResult:
         R = self.scan_slots
-        owner = self._ref_owner(q_hi) if is_ref else self._snp_owner(q_hi)
         ovf_box = [None]
 
         def ans(qh, ql, act):
@@ -492,8 +503,8 @@ class RoutedBackend:
                     cp(res.nb_hi.expand_as(res.hit)), cp(res.nb_lo),
                     cp(res.diff))
 
-        outs, route_ovf = self._route(owner, active, (q_hi, q_lo, active),
-                                      ans, R=R)
+        outs, route_ovf = self._route(is_ref, q_hi, active,
+                                      (q_hi, q_lo, active), ans, R=R)
         hit, pos, flag, info, nbhi, nblo, diff = outs
         return ScanResult(hit=hit != 0, pos=pos, flag=flag, info=info,
                           nb_hi=nbhi, nb_lo=nblo, diff=diff,

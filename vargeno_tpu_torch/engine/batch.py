@@ -18,6 +18,18 @@ probe-grid column order.
 Every capacity is fixed per config; overflow counters report truncation so
 the runner can double the tripped capacity and redo the batch.
 
+Every operation a step launches falls inside exactly one innermost span
+(``utils.profiling.span``, on the profiler's timeline while one runs):
+``step.encode`` (the device encode of the codes path and of the dual
+step's reverse pass), ``step.lookup`` (the exact lookups in both
+dictionaries), ``step.probes`` (neighbour work items, probes, hit
+compaction and expansion), ``step.records`` (the ambiguous-hit aux
+expansion, then the event counts, offsets, scatters and side table: two
+spans a pass), ``step.vote``, ``step.pileup`` and ``step.pack`` (a group's
+stacks split, the stats and masks packed into the step's vector). A
+routed backend's query and answer exchange is ``step.route``, nested in
+the span that queries it.
+
 Conventions: 32-bit words are int64 tensors holding the unsigned value;
 index tables are int32 bit patterns (``core.hashes.widen`` on gather). JAX's
 clamped gathers are clamped here explicitly, and its dropped scatter
@@ -34,6 +46,7 @@ from ..config import GenoConfig, NO_MODIFICATION, POS_AMBIGUOUS
 from ..core.hashes import M32, hash32, popcount, snp_bf_bit, widen
 from ..core.kmer import encode_batch, rc_enc
 from ..kernels.vote import NB_FLAG, VALID_FLAG, vote_scan_records
+from ..utils.profiling import span
 from .backend import LocalBackend
 from .device_index import TorchDeviceIndex
 from .scan_ops import compact_src, cumsum_mask
@@ -278,198 +291,204 @@ class BatchProcessor:
         cfg = self.cfg
         dev = hi.device
 
-        if hasattr(be, "exact_both"):
-            (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag) = \
-                be.exact_both(hi, lo, kmer_valid)
-        else:   # routed backend
-            r_hit, r_pos, r_flag = be.exact_ref(hi, lo, kmer_valid)
-            s_hit, s_pos, s_info, s_flag = be.exact_snp(hi, lo, kmer_valid)
-        r_hit = r_hit & kmer_valid
-        s_hit = s_hit & kmer_valid
+        with span("step.lookup"):
+            if hasattr(be, "exact_both"):
+                (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag) = \
+                    be.exact_both(hi, lo, kmer_valid)
+            else:   # routed backend
+                r_hit, r_pos, r_flag = be.exact_ref(hi, lo, kmer_valid)
+                s_hit, s_pos, s_info, s_flag = be.exact_snp(hi, lo, kmer_valid)
+            r_hit = r_hit & kmer_valid
+            s_hit = s_hit & kmer_valid
 
-        # exact hits: the common unambiguous case writes one event
-        # directly; the rare ambiguous case is compacted across the batch
-        # before its 10-wide aux expansion
-        r_usable = r_hit & (r_pos != POS_AMBIGUOUS)
-        s_usable = s_hit & (s_pos != POS_AMBIGUOUS)
-        r_un_v = r_usable & (r_flag == 0)
-        s_un_v = s_usable & (s_flag == 0)
-        r_am_v = r_usable & (r_flag != 0)
-        s_am_v = s_usable & (s_flag != 0)
+        with span("step.records"):
+            # exact hits: the common unambiguous case writes one event
+            # directly; the rare ambiguous case is compacted across the batch
+            # before its 10-wide aux expansion
+            r_usable = r_hit & (r_pos != POS_AMBIGUOUS)
+            s_usable = s_hit & (s_pos != POS_AMBIGUOUS)
+            r_un_v = r_usable & (r_flag == 0)
+            s_un_v = s_usable & (s_flag == 0)
+            r_am_v = r_usable & (r_flag != 0)
+            s_am_v = s_usable & (s_flag != 0)
 
-        NA = max(64, int(B * cfg.amb_hits_per_read))
-        am_mask = torch.stack([r_am_v, s_am_v], -1).reshape(-1)  # (b, k, d)
-        na_src, amb_overflow = compact_src(am_mask, NA)
-        na_ok = na_src >= 0
-        na_s = na_src.clamp(min=0)
-        na_b = na_s // (K * 2)
-        na_k = (na_s // 2) % K
-        na_isref = (na_s % 2) == 0
-        na_auxrow = torch.where(na_isref, r_pos[na_b, na_k],
-                                s_pos[na_b, na_k])
-        m_r = dix.n_ref_aux
-        m_s = dix.aux_all.shape[0] - m_r
-        na_row = torch.where(na_isref, na_auxrow.clamp(max=m_r - 1),
-                             m_r + na_auxrow.clamp(max=max(m_s - 1, 0)))
-        na_aux = _take(dix.aux_all, na_row)[..., 0]          # (NA, 10)
-        na_colv = na_ok[:, None] & (na_aux != 0)
-        na_count = na_colv.sum(-1)
+            NA = max(64, int(B * cfg.amb_hits_per_read))
+            # (b, k, d) order
+            am_mask = torch.stack([r_am_v, s_am_v], -1).reshape(-1)
+            na_src, amb_overflow = compact_src(am_mask, NA)
+            na_ok = na_src >= 0
+            na_s = na_src.clamp(min=0)
+            na_b = na_s // (K * 2)
+            na_k = (na_s // 2) % K
+            na_isref = (na_s % 2) == 0
+            na_auxrow = torch.where(na_isref, r_pos[na_b, na_k],
+                                    s_pos[na_b, na_k])
+            m_r = dix.n_ref_aux
+            m_s = dix.aux_all.shape[0] - m_r
+            na_row = torch.where(na_isref, na_auxrow.clamp(max=m_r - 1),
+                                 m_r + na_auxrow.clamp(max=max(m_s - 1, 0)))
+            na_aux = _take(dix.aux_all, na_row)[..., 0]          # (NA, 10)
+            na_colv = na_ok[:, None] & (na_aux != 0)
+            na_count = na_colv.sum(-1)
 
-        # per-(B, K) exact event counts
-        am_cnt = torch.zeros(B * K * 2 + 1, dtype=_I64, device=dev)
-        am_cnt.index_put_(
-            (torch.where(na_ok, na_s, B * K * 2),), na_count)
-        am_cnt = am_cnt[:B * K * 2].reshape(B, K, 2)
-        exr_n = r_un_v.long() + am_cnt[..., 0]
-        exs_n = s_un_v.long() + am_cnt[..., 1]
+            # per-(B, K) exact event counts
+            am_cnt = torch.zeros(B * K * 2 + 1, dtype=_I64, device=dev)
+            am_cnt.index_put_(
+                (torch.where(na_ok, na_s, B * K * 2),), na_count)
+            am_cnt = am_cnt[:B * K * 2].reshape(B, K, 2)
+            exr_n = r_un_v.long() + am_cnt[..., 0]
+            exs_n = s_un_v.long() + am_cnt[..., 1]
 
-        # ---- neighbor work-item compaction ----
-        lowq = kmer_valid & (qual < cfg.quality_score)
-        item_src, ni_overflow = compact_src(lowq.reshape(-1), NI)
-        it_ok = item_src >= 0
-        it_b = torch.where(it_ok, item_src // K, 0)
-        it_k = torch.where(it_ok, item_src % K, 0)
-        it_hi = hi[it_b, it_k]
-        it_lo = lo[it_b, it_k]
+        with span("step.probes"):
+            # ---- neighbor work-item compaction ----
+            lowq = kmer_valid & (qual < cfg.quality_score)
+            item_src, ni_overflow = compact_src(lowq.reshape(-1), NI)
+            it_ok = item_src >= 0
+            it_b = torch.where(it_ok, item_src // K, 0)
+            it_k = torch.where(it_ok, item_src % K, 0)
+            it_hi = hi[it_b, it_k]
+            it_lo = lo[it_b, it_k]
 
-        p_hit, p_rows, scan_ovf = self.neighbor_probes(be, it_hi, it_lo,
-                                                       it_ok)
+            p_hit, p_rows, scan_ovf = self.neighbor_probes(be, it_hi, it_lo,
+                                                           it_ok)
 
-        # ---- flat probe-hit compaction (NI, P2) -> (NH,) ----
-        NH = max(64, NI * H // 8)
-        ph_src, ph_overflow = compact_src(p_hit.reshape(-1), NH)
-        h_ok = ph_src >= 0
-        h_s = ph_src.clamp(min=0)
-        h_item = h_s // P2
-        h_rows = torch.where(h_ok[:, None], p_rows.reshape(NI * P2, 4)[h_s],
-                             0)
-        h_pos, h_nbhi, h_nblo, h_meta = h_rows.unbind(1)
-        h_isref = (h_meta & 1) != 0
-        h_diff = (h_meta >> 1) & 0x3F
-        h_flag = (h_meta >> 8) & 0xFF
-        h_info = (h_meta >> 16) & 0xFF
-        h_b = it_b[h_item]
-        h_k = it_k[h_item]
+            # ---- flat probe-hit compaction (NI, P2) -> (NH,) ----
+            NH = max(64, NI * H // 8)
+            ph_src, ph_overflow = compact_src(p_hit.reshape(-1), NH)
+            h_ok = ph_src >= 0
+            h_s = ph_src.clamp(min=0)
+            h_item = h_s // P2
+            h_rows = torch.where(h_ok[:, None],
+                                 p_rows.reshape(NI * P2, 4)[h_s], 0)
+            h_pos, h_nbhi, h_nblo, h_meta = h_rows.unbind(1)
+            h_isref = (h_meta & 1) != 0
+            h_diff = (h_meta >> 1) & 0x3F
+            h_flag = (h_meta >> 8) & 0xFF
+            h_info = (h_meta >> 16) & 0xFF
+            h_b = it_b[h_item]
+            h_k = it_k[h_item]
 
-        nb_kpos, nb_valid, site_q_ovf = self.expand_probe_events(
-            h_isref, h_pos, h_flag, h_info, h_diff, h_ok)    # (NH, 10)
-        ph_overflow = ph_overflow + site_q_ovf
+            nb_kpos, nb_valid, site_q_ovf = self.expand_probe_events(
+                h_isref, h_pos, h_flag, h_info, h_diff, h_ok)    # (NH, 10)
+            ph_overflow = ph_overflow + site_q_ovf
 
-        # ---- event counts and group offsets ----
-        nb_cnt = nb_valid.sum(-1)                             # (NH,)
-        nb_n_item = torch.zeros(NI, dtype=_I64, device=dev).index_add_(
-            0, h_item, torch.where(h_ok, nb_cnt, 0))
-        nb_n_flat = torch.zeros(B * K + 1, dtype=_I64, device=dev)
-        nb_n_flat.index_put_((torch.where(it_ok, item_src, B * K),),
-                             nb_n_item)
-        nb_n = nb_n_flat[:B * K].reshape(B, K)
-        groups = torch.stack([exr_n, exs_n, nb_n], -1).reshape(B, 3 * K)
-        goff = torch.cumsum(groups, -1) - groups
-        ev_total = groups.sum(-1)
-        ev_overflow = (ev_total - E).clamp(min=0).sum()
-        h_n = h_ok.sum()
-        tune_stats = dict(ev_max=ev_total.max(), lowq_n=lowq.sum(),
-                          probe_hits=h_n, probe_lanes_max=h_n,
-                          amb_hits=am_mask.sum())
+        with span("step.records"):
+            # ---- event counts and group offsets ----
+            nb_cnt = nb_valid.sum(-1)                             # (NH,)
+            nb_n_item = torch.zeros(NI, dtype=_I64, device=dev).index_add_(
+                0, h_item, torch.where(h_ok, nb_cnt, 0))
+            nb_n_flat = torch.zeros(B * K + 1, dtype=_I64, device=dev)
+            nb_n_flat.index_put_((torch.where(it_ok, item_src, B * K),),
+                                 nb_n_item)
+            nb_n = nb_n_flat[:B * K].reshape(B, K)
+            groups = torch.stack([exr_n, exs_n, nb_n], -1).reshape(B, 3 * K)
+            goff = torch.cumsum(groups, -1) - groups
+            ev_total = groups.sum(-1)
+            ev_overflow = (ev_total - E).clamp(min=0).sum()
+            h_n = h_ok.sum()
+            tune_stats = dict(ev_max=ev_total.max(), lowq_n=lowq.sum(),
+                              probe_hits=h_n, probe_lanes_max=h_n,
+                              amb_hits=am_mask.sum())
 
-        # Event records are two words [idx, meta] with
-        # meta = k | isnb<<5 | valid<<6 | src<<7, scattered into
-        # (B*(E+1),) word buffers (slot E of each read is padding; NEV is
-        # the sink). The pileup re-derives kmer words and the mutated base
-        # from `meta` through the side table `kt`.
-        NEV = B * (E + 1)
-        ev_idx_f = torch.zeros(NEV + 1, dtype=_I64, device=dev)
-        ev_meta_f = torch.zeros(NEV + 1, dtype=_I64, device=dev)
+            # Event records are two words [idx, meta] with
+            # meta = k | isnb<<5 | valid<<6 | src<<7, scattered into
+            # (B*(E+1),) word buffers (slot E of each read is padding; NEV is
+            # the sink). The pileup re-derives kmer words and the mutated base
+            # from `meta` through the side table `kt`.
+            NEV = B * (E + 1)
+            ev_idx_f = torch.zeros(NEV + 1, dtype=_I64, device=dev)
+            ev_meta_f = torch.zeros(NEV + 1, dtype=_I64, device=dev)
 
-        # exact unambiguous: one event at its group's base slot
-        kslot = torch.arange(K, device=dev)[None, :].expand(B, K)
-        g_exr = goff[:, 0::3]
-        g_exs = goff[:, 1::3]
-        base2 = torch.arange(B, device=dev)[:, None] * (E + 1)
-        t_r = torch.where(r_un_v & (g_exr < E), base2 + g_exr, NEV)
-        t_s = torch.where(s_un_v & (g_exs < E), base2 + g_exs, NEV)
-        t_rs = torch.cat([t_r, t_s], 1).reshape(-1)
-        i_rs = (torch.cat([r_pos - kslot * 32, s_pos - kslot * 32], 1)
-                & M32).reshape(-1)
-        m_ex = kslot | VALID_FLAG
-        m_rs = torch.cat([m_ex, m_ex], 1).reshape(-1)
-        ev_idx_f.index_put_((t_rs,), i_rs)
-        ev_meta_f.index_put_((t_rs,), m_rs)
+            # exact unambiguous: one event at its group's base slot
+            kslot = torch.arange(K, device=dev)[None, :].expand(B, K)
+            g_exr = goff[:, 0::3]
+            g_exs = goff[:, 1::3]
+            base2 = torch.arange(B, device=dev)[:, None] * (E + 1)
+            t_r = torch.where(r_un_v & (g_exr < E), base2 + g_exr, NEV)
+            t_s = torch.where(s_un_v & (g_exs < E), base2 + g_exs, NEV)
+            t_rs = torch.cat([t_r, t_s], 1).reshape(-1)
+            i_rs = (torch.cat([r_pos - kslot * 32, s_pos - kslot * 32], 1)
+                    & M32).reshape(-1)
+            m_ex = kslot | VALID_FLAG
+            m_rs = torch.cat([m_ex, m_ex], 1).reshape(-1)
+            ev_idx_f.index_put_((t_rs,), i_rs)
+            ev_meta_f.index_put_((t_rs,), m_rs)
 
-        # exact ambiguous: compact the aux events, then scatter
-        na_g = goff[na_b, 3 * na_k + torch.where(na_isref, 0, 1)]
-        na_rank = torch.cumsum(na_colv, -1) - 1
-        e_a = na_g[:, None] + na_rank
-        t_a = torch.where(na_colv & (e_a < E),
-                          na_b[:, None] * (E + 1) + e_a, NEV)
-        NAX = max(64, 4 * NA)   # spills count into amb_overflow
-        i_a = (na_aux - na_k[:, None] * 32) & M32
-        m_a = (na_k[:, None] | VALID_FLAG).expand_as(i_a)
-        fa_rows = torch.stack([i_a.reshape(-1), m_a.reshape(-1),
-                               t_a.reshape(-1)], 1)
-        ax_src, ax_ovf = compact_src((t_a < NEV).reshape(-1), NAX)
-        amb_overflow = amb_overflow + ax_ovf
-        ax_ok = ax_src >= 0
-        ax_rows = torch.where(ax_ok[:, None], fa_rows[ax_src.clamp(min=0)],
-                              0)
-        ax_t = torch.where(ax_ok, ax_rows[:, 2], NEV)
-        ev_idx_f.index_put_((ax_t,), ax_rows[:, 0])
-        ev_meta_f.index_put_((ax_t,), ax_rows[:, 1])
+            # exact ambiguous: compact the aux events, then scatter
+            na_g = goff[na_b, 3 * na_k + torch.where(na_isref, 0, 1)]
+            na_rank = torch.cumsum(na_colv, -1) - 1
+            e_a = na_g[:, None] + na_rank
+            t_a = torch.where(na_colv & (e_a < E),
+                              na_b[:, None] * (E + 1) + e_a, NEV)
+            NAX = max(64, 4 * NA)   # spills count into amb_overflow
+            i_a = (na_aux - na_k[:, None] * 32) & M32
+            m_a = (na_k[:, None] | VALID_FLAG).expand_as(i_a)
+            fa_rows = torch.stack([i_a.reshape(-1), m_a.reshape(-1),
+                                   t_a.reshape(-1)], 1)
+            ax_src, ax_ovf = compact_src((t_a < NEV).reshape(-1), NAX)
+            amb_overflow = amb_overflow + ax_ovf
+            ax_ok = ax_src >= 0
+            ax_rows = torch.where(ax_ok[:, None], fa_rows[ax_src.clamp(min=0)],
+                                  0)
+            ax_t = torch.where(ax_ok, ax_rows[:, 2], NEV)
+            ev_idx_f.index_put_((ax_t,), ax_rows[:, 0])
+            ev_meta_f.index_put_((ax_t,), ax_rows[:, 1])
 
-        # neighbor events: (NH, 10); order within an item = (probe, col);
-        # within-item base = global exclusive cumsum minus the item's start
-        C_ex = cumsum_mask(nb_cnt) - nb_cnt
-        item_base = cumsum_mask(nb_n_item) - nb_n_item
-        within = C_ex - item_base[h_item]
-        nb_g = goff[h_b, 3 * h_k + 2]
-        col_rank = torch.cumsum(nb_valid, -1) - 1
-        e_nb = (nb_g + within)[:, None] + col_rank
-        e_nb = torch.where(nb_valid & (e_nb < E), e_nb, E + 1)
+            # neighbor events: (NH, 10); order within an item = (probe, col);
+            # within-item base = global exclusive cumsum minus the item's start
+            C_ex = cumsum_mask(nb_cnt) - nb_cnt
+            item_base = cumsum_mask(nb_n_item) - nb_n_item
+            within = C_ex - item_base[h_item]
+            nb_g = goff[h_b, 3 * h_k + 2]
+            col_rank = torch.cumsum(nb_valid, -1) - 1
+            e_nb = (nb_g + within)[:, None] + col_rank
+            e_nb = torch.where(nb_valid & (e_nb < E), e_nb, E + 1)
 
-        # compact the sparse neighbor events; their wide fields (kmer
-        # words, mutated base) go to the side table, only the 2-word
-        # records are scattered
-        NSE = max(64, int(B * (E + 1) * cfg.sparse_events_frac))
-        f_e = e_nb.reshape(-1)
-        f_t = torch.where(e_nb < E, h_b[:, None] * (E + 1) + e_nb,
-                          NEV).reshape(-1)
+            # compact the sparse neighbor events; their wide fields (kmer
+            # words, mutated base) go to the side table, only the 2-word
+            # records are scattered
+            NSE = max(64, int(B * (E + 1) * cfg.sparse_events_frac))
+            f_e = e_nb.reshape(-1)
+            f_t = torch.where(e_nb < E, h_b[:, None] * (E + 1) + e_nb,
+                              NEV).reshape(-1)
 
-        def per_col(x):
-            return x[:, None].expand(NH, 10).reshape(-1)
+            def per_col(x):
+                return x[:, None].expand(NH, 10).reshape(-1)
 
-        f_w6 = torch.stack([nb_kpos.reshape(-1), per_col(h_k),
-                            per_col(h_nbhi), per_col(h_nblo),
-                            per_col(h_diff), f_t], 1)
-        se_src, sev_overflow = compact_src(f_e < E, NSE)
-        se_ok = se_src >= 0
-        se_rows = torch.where(se_ok[:, None], f_w6[se_src.clamp(min=0)], 0)
-        se_t = torch.where(se_ok, se_rows[:, 5], NEV)
-        se_k = se_rows[:, 1]
-        ev_idx_f.index_put_((se_t,), (se_rows[:, 0] - se_k * 32) & M32)
-        ev_meta_f.index_put_(
-            (se_t,), (se_k | NB_FLAG | VALID_FLAG
-                      | (torch.arange(NSE, device=dev) << 7)) & M32)
+            f_w6 = torch.stack([nb_kpos.reshape(-1), per_col(h_k),
+                                per_col(h_nbhi), per_col(h_nblo),
+                                per_col(h_diff), f_t], 1)
+            se_src, sev_overflow = compact_src(f_e < E, NSE)
+            se_ok = se_src >= 0
+            se_rows = torch.where(se_ok[:, None], f_w6[se_src.clamp(min=0)], 0)
+            se_t = torch.where(se_ok, se_rows[:, 5], NEV)
+            se_k = se_rows[:, 1]
+            ev_idx_f.index_put_((se_t,), (se_rows[:, 0] - se_k * 32) & M32)
+            ev_meta_f.index_put_(
+                (se_t,), (se_k | NB_FLAG | VALID_FLAG
+                          | (torch.arange(NSE, device=dev) << 7)) & M32)
 
-        # unified pileup source table: row b*K+k = the read kmer at slot k
-        # (no mutation); row B*K+j = compacted neighbor row j's mutated
-        # kmer + mutated-base index
-        kt = torch.cat([
-            torch.stack([hi.reshape(-1), lo.reshape(-1),
-                         torch.full((B * K,), NO_MODIFICATION,
-                                    dtype=_I64, device=dev)], -1),
-            torch.stack([se_rows[:, 2], se_rows[:, 3],
-                         torch.where(se_ok, se_rows[:, 4], NO_MODIFICATION)],
-                        -1)], 0)
+            # unified pileup source table: row b*K+k = the read kmer at slot k
+            # (no mutation); row B*K+j = compacted neighbor row j's mutated
+            # kmer + mutated-base index
+            kt = torch.cat([
+                torch.stack([hi.reshape(-1), lo.reshape(-1),
+                             torch.full((B * K,), NO_MODIFICATION,
+                                        dtype=_I64, device=dev)], -1),
+                torch.stack([se_rows[:, 2], se_rows[:, 3],
+                             torch.where(se_ok, se_rows[:, 4],
+                                         NO_MODIFICATION)], -1)], 0)
 
-        # the vote and the pileup read the records in place: (B, E) views
-        # of the (B, E + 1)-strided word buffers
-        ev_idx = ev_idx_f[:NEV].reshape(B, E + 1)[:, :E]
-        meta = ev_meta_f[:NEV].reshape(B, E + 1)[:, :E]
-        buf = dict(idx=ev_idx, meta=meta, valid=(meta & VALID_FLAG) != 0,
-                   kt=kt)
+            # the vote and the pileup read the records in place: (B, E) views
+            # of the (B, E + 1)-strided word buffers
+            ev_idx = ev_idx_f[:NEV].reshape(B, E + 1)[:, :E]
+            meta = ev_meta_f[:NEV].reshape(B, E + 1)[:, :E]
+            buf = dict(idx=ev_idx, meta=meta, valid=(meta & VALID_FLAG) != 0,
+                       kt=kt)
 
         # ---- vote scan (improved_index_table_add, qv.cc:132-178) ----
-        process, target, cand_ovf = self.vote(ev_idx, meta, ev_total, C)
+        with span("step.vote"):
+            process, target, cand_ovf = self.vote(ev_idx, meta, ev_total, C)
         stats = dict(ni_overflow=ni_overflow, probe_overflow=ph_overflow,
                      event_overflow=ev_overflow, sev_overflow=sev_overflow,
                      amb_overflow=amb_overflow,
@@ -585,23 +604,26 @@ class BatchProcessor:
         Returns (ref_cnt, alt_cnt, process, read_ok, stats)."""
         be = self._backend()
         res = self.orientation_pass(be, hi, lo, kvalid, read_ok, qual)
-        ref_cnt, alt_cnt, aovf, sovf, agree_n = self.pileup_accumulate(
-            res["buf"], res["process"], res["target"], ref_cnt, alt_cnt)
+        with span("step.pileup"):
+            ref_cnt, alt_cnt, aovf, sovf, agree_n = self.pileup_accumulate(
+                res["buf"], res["process"], res["target"], ref_cnt, alt_cnt)
         stats = dict(res["stats"])
         stats["agree_overflow"] = aovf
         stats["site_slot_overflow"] = sovf
         stats["agree_lanes_max"] = agree_n
-        stats["n_processed"] = res["process"].sum()
-        # reads this orientation failed that are retry-eligible
-        stats["retry_n"] = (~res["process"] & res["read_ok"]
-                            & kvalid[:, 0]).sum()
+        with span("step.pack"):
+            stats["n_processed"] = res["process"].sum()
+            # reads this orientation failed that are retry-eligible
+            stats["retry_n"] = (~res["process"] & res["read_ok"]
+                                & kvalid[:, 0]).sum()
         _backend_stats(be, stats)
         return ref_cnt, alt_cnt, res["process"], res["read_ok"], stats
 
     def single(self, codes, n_kmers, qual, ref_cnt, alt_cnt):
         """``single_enc`` from (B, L) uint8 base codes, encoded on the
         device (the runner's codes path, ``pre_encode=False``)."""
-        enc = encode_batch(codes, n_kmers, self.shapes.K)
+        with span("step.encode"):
+            enc = encode_batch(codes, n_kmers, self.shapes.K)
         return self.single_enc(*enc, qual, ref_cnt, alt_cnt)
 
     def multi_enc(self, hi, lo, kvalid, read_ok, qual, ref_cnt, alt_cnt):
@@ -613,19 +635,22 @@ class BatchProcessor:
         accumulators are left untouched (a redo rewinds to them).
         Returns (ref_cnt, alt_cnt, process, read_ok, stats)."""
         procs, oks, rows = [], [], []
-        for g in range(hi.shape[0]):
+        with span("step.pack"):   # the stacks split into sub-batches
+            subs = list(zip(*(t.unbind(0)
+                              for t in (hi, lo, kvalid, read_ok, qual))))
+        for sub in subs:
             ref_cnt, alt_cnt, process, rok, stats = self.single_enc(
-                hi[g], lo[g], kvalid[g], read_ok[g], qual[g], ref_cnt,
-                alt_cnt)
+                *sub, ref_cnt, alt_cnt)
             procs.append(process)
             oks.append(rok)
             rows.append(stats)
         stats = {}
-        for k in rows[0]:
-            col = torch.stack([torch.as_tensor(r[k]) for r in rows])
-            stats[k] = col.max() if k.endswith("_max") else col.sum()
-        return (ref_cnt, alt_cnt, torch.stack(procs), torch.stack(oks),
-                stats)
+        with span("step.pack"):
+            for k in rows[0]:
+                col = torch.stack([torch.as_tensor(r[k]) for r in rows])
+                stats[k] = col.max() if k.endswith("_max") else col.sum()
+            procs, oks = torch.stack(procs), torch.stack(oks)
+        return ref_cnt, alt_cnt, procs, oks, stats
 
     # ------------------------------------------------------------------
     def dual_enc(self, hi, lo, kvalid, read_ok, n_kmers, qual, ref_cnt,
@@ -639,28 +664,31 @@ class BatchProcessor:
         ``fwd_`` / ``rev_`` prefix."""
         be = self._backend()
         fwd = self.orientation_pass(be, hi, lo, kvalid, read_ok, qual)
-        rev = self.orientation_pass(
-            be, *rc_enc(hi, lo, kvalid, read_ok, n_kmers, self.shapes.K),
-            qual)
-        use_fwd = fwd["process"]
-        use_rev = ~fwd["process"] & fwd["read_ok"] & rev["process"]
-        ref_cnt, alt_cnt, aovf1, sovf1, an1 = self.pileup_accumulate(
-            fwd["buf"], use_fwd, fwd["target"], ref_cnt, alt_cnt)
-        ref_cnt, alt_cnt, aovf2, sovf2, an2 = self.pileup_accumulate(
-            rev["buf"], use_rev, rev["target"], ref_cnt, alt_cnt)
+        with span("step.encode"):
+            rc = rc_enc(hi, lo, kvalid, read_ok, n_kmers, self.shapes.K)
+        rev = self.orientation_pass(be, *rc, qual)
+        with span("step.pileup"):
+            use_fwd = fwd["process"]
+            use_rev = ~fwd["process"] & fwd["read_ok"] & rev["process"]
+            ref_cnt, alt_cnt, aovf1, sovf1, an1 = self.pileup_accumulate(
+                fwd["buf"], use_fwd, fwd["target"], ref_cnt, alt_cnt)
+            ref_cnt, alt_cnt, aovf2, sovf2, an2 = self.pileup_accumulate(
+                rev["buf"], use_rev, rev["target"], ref_cnt, alt_cnt)
         stats = {"fwd_" + k: v for k, v in fwd["stats"].items()}
         stats.update({"rev_" + k: v for k, v in rev["stats"].items()})
-        stats["agree_overflow"] = aovf1 + aovf2
-        stats["site_slot_overflow"] = sovf1 + sovf2
-        stats["agree_lanes_max"] = torch.maximum(an1, an2)
-        stats["n_processed"] = (use_fwd | use_rev).sum()
+        with span("step.pack"):
+            stats["agree_overflow"] = aovf1 + aovf2
+            stats["site_slot_overflow"] = sovf1 + sovf2
+            stats["agree_lanes_max"] = torch.maximum(an1, an2)
+            stats["n_processed"] = (use_fwd | use_rev).sum()
         _backend_stats(be, stats)
         return ref_cnt, alt_cnt, stats
 
     def dual(self, codes, n_kmers, qual, ref_cnt, alt_cnt):
         """``dual_enc`` from (B, L) uint8 base codes, encoded on the
         device."""
-        enc = encode_batch(codes, n_kmers, self.shapes.K)
+        with span("step.encode"):
+            enc = encode_batch(codes, n_kmers, self.shapes.K)
         return self.dual_enc(*enc, n_kmers, qual, ref_cnt, alt_cnt)
 
 

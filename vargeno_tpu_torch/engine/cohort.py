@@ -74,10 +74,15 @@ class CohortRunner:
                               s.rf, s.af, ref, alt, self.config)
 
     def write_vcfs(self, vcf_in: str, out_pattern: str) -> List[str]:
-        """out_pattern must contain '{sample}'."""
+        """out_pattern must contain '{sample}'. Each sample's calls and
+        rewrite are the runner's stages ``vcf_calls`` and ``vcf_write``."""
+        st = self._runner.timer
         outs = []
         for name in self.counts:
             out = out_pattern.format(sample=name)
-            write_calls_vcf(vcf_in, out, self.sample_calls(name))
+            with st.stage("vcf_calls"):
+                calls = self.sample_calls(name)
+            with st.stage("vcf_write"):
+                write_calls_vcf(vcf_in, out, calls)
             outs.append(out)
         return outs

@@ -50,7 +50,7 @@ from ..index import store
 from ..io.fastq import iter_read_batches, prefetch
 from ..io.vcf_writer import write_calls_vcf
 from ..kernels.vote import vote_scan_records
-from ..utils.profiling import Meter, StageTimer
+from ..utils.profiling import Meter, StageTimer, span
 from . import checkpoint as ckpt
 from .autotune import TUNE_KEYS, tuned_config
 from .batch import make_batch_processor
@@ -180,15 +180,16 @@ def step_vec(proc, args, kind: str, ref_cnt, alt_cnt):
     step -- the (process, read_ok) bit words packed into ONE device
     vector, so a batch syncs the host once."""
     out = getattr(proc, STEPS[kind])(*args, ref_cnt, alt_cnt)
-    if kind == "dual":
-        rc, ac, stats = out
-        masks = []
-    else:
-        rc, ac, process, read_ok, stats = out
-        masks = [_bits(process), _bits(read_ok)]
-    keys = sorted(stats)
-    return rc, ac, keys, torch.cat([torch.stack([stats[k] for k in keys])]
-                                   + masks)
+    with span("step.pack"):
+        if kind == "dual":
+            rc, ac, stats = out
+            masks = []
+        else:
+            rc, ac, process, read_ok, stats = out
+            masks = [_bits(process), _bits(read_ok)]
+        keys = sorted(stats)
+        return rc, ac, keys, torch.cat(
+            [torch.stack([stats[k] for k in keys])] + masks)
 
 
 class Fetch:
@@ -354,8 +355,10 @@ class GenoRunner:
         self._tune_seen = 0
         self._tuned = not config.auto_tune
         self.meter = Meter(metrics_path)
-        # the host loop's main-thread seconds by stage (read_batch,
-        # dispatch, finalize_wait, enqueue_retry)
+        # the host loop's seconds by stage: the main thread's read_batch,
+        # dispatch, retry_dispatch, finalize_wait and enqueue_retry, the
+        # producer thread's producer.parse, producer.encode and
+        # producer.upload, and write_vcf's vcf_calls and vcf_write
         self.timer = StageTimer(sync=False)
 
     def _proc(self, cfg: GenoConfig):
@@ -597,14 +600,29 @@ class GenoRunner:
                                  cfg.max_read_len, cfg.max_kmers_per_read,
                                  skip_reads=skip)
 
+    def _parsed(self, fastq_path, skip):
+        """The host loop's read batches, each parse timed as the stage
+        ``producer.parse`` (the last one finds the end of the stream)."""
+        st = self.timer
+        it = iter(self._read_batches(fastq_path, skip))
+        while True:
+            with st.stage("producer.parse"):
+                b = next(it, None)
+            if b is None:
+                return
+            yield b
+
     def _batches(self, fastq_path, skip):
         """Encoded batches from a producer thread: (batch, enc) pairs in a
         generator that stops its thread when closed."""
         encode = _encoder(self.config.max_kmers_per_read)
+        st = self.timer
 
         def produce():
-            for b in self._read_batches(fastq_path, skip):
-                yield b, encode(b.codes, b.n_kmers)
+            for b in self._parsed(fastq_path, skip):
+                with st.stage("producer.encode"):
+                    e = encode(b.codes, b.n_kmers)
+                yield b, e
 
         return contextlib.closing(prefetch(produce(), depth=3)), encode
 
@@ -618,19 +636,27 @@ class GenoRunner:
                       checkpoint_path, checkpoint_every):
         batches, _ = self._batches(fastq_path, skip)
         depth = self._dual_depth()
+        st = self.timer
         inflight: deque = deque()
         nb = 0
 
         def finalize_one():
             p = inflight.popleft()
-            self._finalize(p)
+            with st.stage("finalize_wait"):
+                self._finalize(p)
             self.meter.bump(p["count"])
 
         with batches as it:
-            for batch, enc in it:
+            while True:
+                with st.stage("read_batch"):
+                    item = next(it, None)
+                if item is None:
+                    break
+                batch, enc = item
                 self.n_reads += reads_of(batch)
-                p = self._dispatch("dual", self._upload(
-                    enc, batch.qual, batch.n_kmers))
+                with st.stage("dispatch"):
+                    p = self._dispatch("dual", self._upload(
+                        enc, batch.qual, batch.n_kmers))
                 p["count"] = reads_of(batch)
                 inflight.append(p)
                 nb += 1
@@ -740,11 +766,12 @@ class GenoRunner:
         def flush_pending(force=False):
             nonlocal pend_n
             while pend_n >= B or (force and pend_n > 0):
-                codes, nk, qual, got = self._take_queued(pend, B)
-                # the queue moves BEFORE pump(): finalizing a forward
-                # batch there may append retries
-                pend_n -= got
-                dispatch(codes, nk, qual, 0, None)
+                with st.stage("retry_dispatch"):
+                    codes, nk, qual, got = self._take_queued(pend, B)
+                    # the queue moves BEFORE pump(): finalizing a forward
+                    # batch there may append retries
+                    pend_n -= got
+                    dispatch(codes, nk, qual, 0, None)
                 pump()
 
         def drain():
@@ -763,13 +790,17 @@ class GenoRunner:
             self._up_stream = torch.cuda.Stream(self.device)
 
         def produce():
-            for b in self._read_batches(fastq_path, skip):
+            for b in self._parsed(fastq_path, skip):
                 if encode is None:
                     yield b, None, None
                     continue
-                e = encode(b.codes, b.n_kmers)
-                yield b, e, (self._upload_async(e, b.qual) if pre_up
-                             else None)
+                with st.stage("producer.encode"):
+                    e = encode(b.codes, b.n_kmers)
+                up = None
+                if pre_up:
+                    with st.stage("producer.upload"):
+                        up = self._upload_async(e, b.qual)
+                yield b, e, up
 
         with contextlib.closing(prefetch(produce(), depth=3)) as it:
             while True:
@@ -833,5 +864,10 @@ class GenoRunner:
                               s.rf, s.af, ref, alt, self.config)
 
     def write_vcf(self, vcf_in: str, vcf_out: str) -> None:
-        write_calls_vcf(vcf_in, vcf_out, self.calls())
+        """The calls (the count fetch and ``finalize_calls``, stage
+        ``vcf_calls``), then the VCF rewrite (stage ``vcf_write``)."""
+        with self.timer.stage("vcf_calls"):
+            calls = self.calls()
+        with self.timer.stage("vcf_write"):
+            write_calls_vcf(vcf_in, vcf_out, calls)
 

@@ -1,10 +1,17 @@
 """Tracing / profiling / metrics (port of ``vargeno_tpu/utils/profiling.py``).
 
+- ``span(name)``: a named range on the profiler's timeline
+  (``torch.profiler.record_function``) while a profiler runs; otherwise a
+  shared null context, after one flag check. Spans keep no clock of their
+  own: in a trace they stand on the profiler's clock beside the kernels,
+  copies and sets they launched.
 - ``trace(dir)``: context manager around ``torch.profiler`` that writes a
-  Chrome trace (``<dir>/trace.json``, viewable in Perfetto) of the host and,
-  when there is a card, of the device.
-- ``StageTimer``: wall time per named stage, with a device sync at the end
-  of a stage where one is asked for.
+  Chrome trace (``<dir>/trace.json``, viewable in Perfetto) of every
+  thread's spans and host operations and, when there is a card, of the
+  device.
+- ``StageTimer``: wall time per named stage, recorded from any thread, with
+  a device sync at the end of a stage where one is asked for; each stage
+  is also a span ``stage.<name>``.
 - ``Meter``: throughput counter (reads/s, batches/s) with jsonl export.
 - ``device_ms``: median time of a function on a device, from CUDA events on
   the card.
@@ -16,43 +23,78 @@ import contextlib
 import json
 import os
 import statistics
+import threading
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler runs, else a shared null
+    context: a ``record_function`` entered with no profiler still costs
+    microseconds, the flag check a fraction of one."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _all_threads():
+    """A profiler config that records every thread (the producer's
+    stages), where this torch offers one; else None, the default."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, name: str = "trace.json"):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, experimental_config=_all_threads()) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
 class StageTimer:
+    """Seconds and calls by stage name; stages may be recorded from several
+    threads at once. Durations only: the timeline is the profiler's, where
+    each stage is the span ``stage.<name>``."""
+
     def __init__(self, sync: bool = True):
         self.sync = sync
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str, block_on: Optional[torch.device] = None):
         """``block_on``: the CUDA device whose queued work belongs to the
         stage; it is synchronized before the clock is read."""
-        t0 = time.perf_counter()
-        yield
-        if self.sync and block_on is not None \
-                and torch.device(block_on).type == "cuda":
-            torch.cuda.synchronize(block_on)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
+        with span("stage." + name):
+            t0 = time.perf_counter()
+            yield
+            if self.sync and block_on is not None \
+                    and torch.device(block_on).type == "cuda":
+                torch.cuda.synchronize(block_on)
+            dt = time.perf_counter() - t0
+        with self._lock:
+            if name in self.totals:
+                self.totals[name] += dt
+                self.counts[name] += 1
+            else:   # a new key: a reader copying the dicts never sees
+                    # them grow under it
+                self.totals = {**self.totals, name: dt}
+                self.counts = {**self.counts, name: 1}
 
     def report(self) -> str:
         lines = []
@@ -86,8 +128,12 @@ class Meter:
         d.update(self.extra)
         return d
 
-    def emit(self) -> dict:
+    def emit(self, stages: Optional[Dict[str, float]] = None) -> dict:
+        """Append the snapshot as one json line; ``stages``: seconds by
+        stage (a ``StageTimer``'s totals), kept under ``stages``."""
         snap = self.snapshot()
+        if stages is not None:
+            snap["stages"] = dict(stages)
         if self.path:
             with open(self.path, "a") as f:
                 f.write(json.dumps(snap) + "\n")

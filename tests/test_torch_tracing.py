@@ -366,6 +366,19 @@ def test_cli_geno_metrics_line_carries_stages(cli_run):
     assert snap["reads"] > 0
 
 
+def test_cli_geno_metrics_line_counts_vcf_rewrites(cli_run):
+    """The line comes once the VCF is written: the rewrite's stages, and
+    the one rewrite counted by the path that ran."""
+    from vargeno_tpu_torch import native
+
+    rc, d, _ = cli_run
+    assert rc == 0
+    snap = json.loads(open(d / "m.jsonl").read().splitlines()[-1])
+    assert {"vcf_calls", "vcf_write"} <= set(snap["stages"])
+    want = 1 if native.available() else 0
+    assert (snap["n_vcf_native"], snap["n_vcf_fallback"]) == (want, 1 - want)
+
+
 def test_cli_geno_trace_dir_holds_step_and_stage_spans(cli_run):
     rc, d, t0 = cli_run
     assert rc == 0

@@ -45,12 +45,16 @@ cpu; NCCL takes one process a card, so a card named by two processes needs
 gloo). Every collective waits at most 300 s for a peer. Only process 0
 writes the VCF and the checkpoint.
 
-``geno --metrics PATH`` appends one json line at the end of the stream:
-reads, batches, seconds, reads/s, and ``stages``, the host loop's seconds
-by stage. ``geno --trace-dir DIR`` runs the stream and the VCF under
-``torch.profiler`` and writes ``DIR/trace.json`` (``trace.rank<r>.json``
-for each process under ``--multihost``): every thread's ``stage.*`` spans
-and the step's ``step.*`` spans beside the card's kernels and copies.
+``geno --metrics PATH`` appends one json line once the VCF is written:
+reads, batches, seconds and reads/s up to the VCF closed, ``stages``, the
+host loop's seconds by stage (``vcf_calls`` and ``vcf_write`` included),
+and ``n_vcf_native`` / ``n_vcf_fallback``, the VCF rewrites made by the
+native pass and by the Python loop (which runs where the native library
+is missing or the pass declines an input). ``geno --trace-dir DIR`` runs
+the stream and the VCF under ``torch.profiler`` and writes
+``DIR/trace.json`` (``trace.rank<r>.json`` for each process under
+``--multihost``): every thread's ``stage.*`` spans and the step's
+``step.*`` spans beside the card's kernels and copies.
 """
 
 from __future__ import annotations
@@ -202,7 +206,7 @@ def _parser():
                         "testing / partial runs)")
     p.add_argument("--metrics", default=None,
                    help="append jsonl throughput metrics (with the seconds "
-                        "by stage) to this path")
+                        "by stage and the VCF rewrite's path) to this path")
     p.add_argument("--trace-dir", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run "
                         "to DIR/trace.json (trace.rank<r>.json a process "
@@ -426,9 +430,11 @@ def _main(argv=None):
             runner.consume_fastq(args.reads_fq,
                                  checkpoint_path=args.checkpoint,
                                  limit_batches=args.limit_batches)
-            if args.metrics and (cluster is None or cluster.rank == 0):
-                runner.meter.emit(runner.timer.totals)
             runner.write_vcf(args.snp_vcf, args.out_vcf)
+            if args.metrics and (cluster is None or cluster.rank == 0):
+                runner.meter.emit(runner.timer.totals,
+                                  n_vcf_native=runner.n_vcf_native,
+                                  n_vcf_fallback=runner.n_vcf_fallback)
         if cluster is not None:
             multihost.shutdown(cluster)
         return 0
@@ -465,9 +471,9 @@ def _main(argv=None):
         s = index.sites
         rc = np.array([eng.pileup[int(p)][4] for p in s.pos])
         ac = np.array([eng.pileup[int(p)][5] for p in s.pos])
-        calls = finalize_calls(index.chrlens, s.pos, s.ref, s.alt, s.rf,
+        table = finalize_calls(index.chrlens, s.pos, s.ref, s.alt, s.rf,
                                s.af, rc, ac, eng.config)
-        write_calls_vcf(args.snp_vcf, args.out_vcf, calls)
+        write_calls_vcf(args.snp_vcf, args.out_vcf, table)
         return 0
 
     if args.cmd == "kmerc":

@@ -60,7 +60,6 @@ from ..engine import checkpoint as ckpt
 from ..engine.geno import revcomp_select_host
 from ..index import store
 from ..io.fastq import iter_read_batches_strided
-from ..io.vcf_writer import write_calls_vcf
 from .sharded_dict import ShardedDictGenoRunner
 from .sharding import DEFAULT_TIMEOUT, Mesh, ShardedGenoRunner
 
@@ -215,10 +214,9 @@ class _MultiHostMixin:
 
     def write_vcf(self, vcf_in: str, vcf_out: str) -> None:
         with self.timer.stage("vcf_calls"):
-            calls = self.calls()   # collective (host_counts)
+            table = self.calls()   # collective (host_counts)
         if self.cluster.rank == 0:
-            with self.timer.stage("vcf_write"):
-                write_calls_vcf(vcf_in, vcf_out, calls)
+            self._rewrite(vcf_in, vcf_out, table)
         barrier(self.cluster)
 
     # --- the host loops ---

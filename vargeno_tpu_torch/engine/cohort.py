@@ -20,7 +20,6 @@ import torch
 from ..config import DEFAULT_CONFIG, GenoConfig
 from ..finalize import finalize_calls
 from ..index import store
-from ..io.vcf_writer import write_calls_vcf
 from .geno import GenoRunner
 
 
@@ -75,14 +74,15 @@ class CohortRunner:
 
     def write_vcfs(self, vcf_in: str, out_pattern: str) -> List[str]:
         """out_pattern must contain '{sample}'. Each sample's calls and
-        rewrite are the runner's stages ``vcf_calls`` and ``vcf_write``."""
-        st = self._runner.timer
+        rewrite are the runner's stages ``vcf_calls`` and ``vcf_write``, and
+        its rewrite counts in the runner's ``n_vcf_native`` /
+        ``n_vcf_fallback``."""
+        r = self._runner
         outs = []
         for name in self.counts:
             out = out_pattern.format(sample=name)
-            with st.stage("vcf_calls"):
-                calls = self.sample_calls(name)
-            with st.stage("vcf_write"):
-                write_calls_vcf(vcf_in, out, calls)
+            with r.timer.stage("vcf_calls"):
+                table = self.sample_calls(name)
+            r._rewrite(vcf_in, out, table)
             outs.append(out)
         return outs

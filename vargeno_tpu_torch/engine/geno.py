@@ -348,6 +348,8 @@ class GenoRunner:
         self.n_escalations = 0   # batch redos after an overflow
         self.n_rewinds = 0       # later in-flight batches an escalation
                                  # re-dispatched
+        self.n_vcf_native = 0    # VCF rewrites by the native pass
+        self.n_vcf_fallback = 0  # and by the Python loop
         self._inflight: list = []   # dispatched handles, dispatch order
         self._worker: Optional[FetchWorker] = None   # while a loop runs
         self._up_stream = None   # the producer thread's upload stream
@@ -867,7 +869,16 @@ class GenoRunner:
         """The calls (the count fetch and ``finalize_calls``, stage
         ``vcf_calls``), then the VCF rewrite (stage ``vcf_write``)."""
         with self.timer.stage("vcf_calls"):
-            calls = self.calls()
+            table = self.calls()
+        self._rewrite(vcf_in, vcf_out, table)
+
+    def _rewrite(self, vcf_in: str, vcf_out: str, table) -> None:
+        """The VCF rewrite (stage ``vcf_write``), counted by the path that
+        ran in ``n_vcf_native`` / ``n_vcf_fallback``."""
         with self.timer.stage("vcf_write"):
-            write_calls_vcf(vcf_in, vcf_out, calls)
+            path = write_calls_vcf(vcf_in, vcf_out, table)
+        if path == "native":
+            self.n_vcf_native += 1
+        else:
+            self.n_vcf_fallback += 1
 

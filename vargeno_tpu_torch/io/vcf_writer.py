@@ -1,4 +1,4 @@
-"""Jax-free copy of ``vargeno_tpu/io/vcf_writer.py``.
+"""Port of ``vargeno_tpu/io/vcf_writer.py``, over a call table.
 
 VCF rewrite: inject GT:GQ calls into the input VCF.
 
@@ -14,20 +14,46 @@ info_columns[gq_index] with gq_index still -1 (the condition at
 src/qv.cc:1699 tests gt_index instead of gq_index) -- undefined behavior that
 segfaults in practice (verified against the built binary). We implement the
 evident intent instead: locate GT/GQ in the FORMAT column and replace them.
+
+The calls come as ``finalize.CallTable``. The rewrite is one native pass
+over the input's bytes (``native.vcf_rewrite``); where the native library
+is missing, or the pass declines an input, the Python loop
+(``rewrite_loop``) runs over the table's map instead, with the same bytes
+out and the same errors.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from .. import native
+
 GT_HEADER = '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">'
 GQ_HEADER = ('##FORMAT=<ID=GQ,Number=1,Type=Integer,'
              'Description="Genotype Quality">')
 
 
-def write_calls_vcf(vcf_in: str, vcf_out: str,
-                    calls: Dict[str, Tuple[str, int]]) -> None:
-    """calls maps 'chrname$pos' -> (genotype char '0'|'1'|'2', gq int)."""
+def write_calls_vcf(vcf_in: str, vcf_out: str, table) -> str:
+    """Rewrite ``vcf_in`` into ``vcf_out`` with the calls of ``table`` (a
+    ``finalize.CallTable``); returns the path that ran, "native" or
+    "fallback" (the Python loop)."""
+    if native.available():
+        with open(vcf_in, "rb") as f:
+            data = f.read()
+        out = native.vcf_rewrite(data, table.names, table.chrom, table.pos,
+                                 table.gchar, table.gq)
+        if out is not None:
+            with open(vcf_out, "wb") as f:
+                f.write(out)
+            return "native"
+    rewrite_loop(vcf_in, vcf_out, table.as_dict())
+    return "fallback"
+
+
+def rewrite_loop(vcf_in: str, vcf_out: str,
+                 calls: Dict[str, Tuple[str, int]]) -> None:
+    """The reference's rewrite line by line; calls maps 'chrname$pos' ->
+    (genotype char '0'|'1'|'2', gq int)."""
     has_gt = False
     has_gq = False
     gt_index = -1

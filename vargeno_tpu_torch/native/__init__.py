@@ -124,6 +124,13 @@ def _load():
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8)]
+        lib.vgt_vcf_rewrite.restype = ctypes.c_int64
+        lib.vgt_vcf_rewrite.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -366,3 +373,50 @@ def revcomp_select(codes: np.ndarray, n_kmers: np.ndarray,
             onk.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             oq.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return oc, onk, oq
+
+
+LINE_SLACK = 256   # kLineSlack in fastio.cc: output bytes a line may gain
+
+
+def vcf_rewrite(data: bytes, names, chrom: np.ndarray, pos: np.ndarray,
+                gchar: np.ndarray, gq: np.ndarray):
+    """The VCF rewrite of ``io/vcf_writer.py`` in one native pass over the
+    input VCF's bytes ``data``, with the calls as a table (``names``: the
+    chromosome names; row r: name ``chrom[r]``, local position ``pos[r]``,
+    genotype character ``gchar[r]``, GQ ``gq[r]``). Returns the output
+    VCF's bytes, or None where the pass declines (input the Python loop
+    would reject, or that is not ASCII): the caller then runs the loop."""
+    lib = _load()
+    assert lib is not None
+    pos = np.ascontiguousarray(pos, np.int64)
+    if pos.size and (pos.min() < 0 or pos.max() >= 10 ** 18):
+        return None   # not a decimal the pass matches (1-18 digits)
+    first: dict = {}
+    canon = np.array([first.setdefault(n, i) for i, n in enumerate(names)],
+                     np.int32)   # each name's first index
+    blobs = [n.encode("utf-8", "surrogatepass") for n in names]
+    off = np.zeros(len(blobs) + 1, np.int64)
+    off[1:] = np.cumsum([len(b) for b in blobs])
+    ids = np.ascontiguousarray(canon[chrom], np.int32)
+    gchar = np.ascontiguousarray(gchar, np.uint8)
+    gq = np.ascontiguousarray(gq, np.int32)
+
+    def run(cap: int):
+        out = np.empty(cap, np.uint8)
+        n = lib.vgt_vcf_rewrite(
+            data, len(data), b"".join(blobs),
+            off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(blobs),
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            gchar.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            gq.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), ids.shape[0],
+            out.ctypes.data, cap)
+        return n, out
+
+    # rows gain a few columns; where headers gain more, a line's slack
+    # bounds the output
+    n, out = run(len(data) * 3 // 2 + (1 << 16))
+    if n == -2:
+        n, out = run(len(data) + LINE_SLACK * (
+            data.count(b"\n") + data.count(b"\r") + 1))
+    return None if n < 0 else memoryview(out)[:n]

@@ -9,10 +9,13 @@
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 dependency).
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <string>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -440,6 +443,317 @@ int64_t vgt_radix_sort_kv_u64u32(uint64_t* keys, uint32_t* vals,
   }
   std::free(kb); std::free(vb);
   return 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+// a line's slack in the output: the headers put before it, or the
+// columns a row gains
+const int64_t kLineSlack = 256;
+
+struct Span {
+  const char* p;
+  int64_t n;
+};
+
+inline bool span_eq(Span a, const char* s, int64_t n) {
+  return a.n == n && std::memcmp(a.p, s, n) == 0;
+}
+
+inline bool contains(const char* s, int64_t n, const char* pat) {
+  int64_t m = (int64_t)std::strlen(pat);
+  for (int64_t i = 0; i + m <= n; ++i)
+    if (std::memcmp(s + i, pat, m) == 0) return true;
+  return false;
+}
+
+void split(const char* s, int64_t n, char sep, std::vector<Span>* out) {
+  out->clear();
+  const char* end = s + n;
+  for (;;) {
+    const char* q = static_cast<const char*>(std::memchr(s, sep, end - s));
+    if (!q) { out->push_back({s, end - s}); return; }
+    out->push_back({s, q - s});
+    s = q + 1;
+  }
+}
+
+// 0x80 in each byte of x that is zero (exact as to whether any is)
+inline uint64_t zero_bytes(uint64_t x) {
+  return (x - 0x0101010101010101ull) & ~x & 0x8080808080808080ull;
+}
+
+// The end of the line at p: the first '\n' or '\r', or `end`; sets
+// *high when a byte on the way is not ASCII.
+inline const char* line_end(const char* p, const char* end, bool* high) {
+  while (end - p >= 8) {
+    uint64_t w;
+    std::memcpy(&w, p, 8);
+    if ((w & 0x8080808080808080ull) |
+        zero_bytes(w ^ 0x0a0a0a0a0a0a0a0aull) |
+        zero_bytes(w ^ 0x0d0d0d0d0d0d0d0dull))
+      break;
+    p += 8;
+  }
+  for (; p < end && *p != '\n' && *p != '\r'; ++p)
+    if (*p & 0x80) *high = true;
+  return p;
+}
+
+int write_int(char* buf, int32_t v) {
+  char tmp[12];
+  int n = 0;
+  int64_t x = v;
+  bool neg = x < 0;
+  if (neg) x = -x;
+  do { tmp[n++] = (char)('0' + x % 10); x /= 10; } while (x);
+  int k = 0;
+  if (neg) buf[k++] = '-';
+  while (n) buf[k++] = tmp[--n];
+  return k;
+}
+
+struct Key {
+  int32_t id;
+  int64_t pos;
+  bool operator<(const Key& o) const {
+    return id != o.id ? id < o.id : pos < o.pos;
+  }
+  bool operator==(const Key& o) const { return id == o.id && pos == o.pos; }
+};
+
+// (name id, local position) -> the last table row with that key: the
+// keys sorted once (a table in site order already is, but for the rows
+// past the last chromosome's end), then a cursor that a VCF in the same
+// order walks forward; a line out of that order moves it by a binary
+// search.
+class CallMap {
+ public:
+  CallMap(const int32_t* id, const int64_t* pos, int64_t n) {
+    std::vector<std::pair<Key, int64_t>> kv((size_t)n);
+    bool sorted = true;
+    for (int64_t r = 0; r < n; ++r) {
+      kv[r] = {{id[r], pos[r]}, r};
+      if (r && kv[r].first < kv[r - 1].first) sorted = false;
+    }
+    if (!sorted)
+      std::stable_sort(kv.begin(), kv.end(),
+                       [](const std::pair<Key, int64_t>& a,
+                          const std::pair<Key, int64_t>& b) {
+                         return a.first < b.first;
+                       });
+    for (size_t i = 0; i < kv.size(); ++i) {
+      if (i + 1 < kv.size() && kv[i + 1].first == kv[i].first) continue;
+      keys_.push_back(kv[i].first);   // the last of equal keys
+      rows_.push_back(kv[i].second);
+    }
+  }
+  int64_t find(Key k) {
+    const int64_t n = (int64_t)keys_.size();
+    if (cur_ < n && keys_[cur_] < k) {
+      int64_t step = 0;
+      while (cur_ < n && keys_[cur_] < k && step++ < 8) ++cur_;
+      if (cur_ < n && keys_[cur_] < k)
+        cur_ = std::lower_bound(keys_.begin() + cur_, keys_.end(), k) -
+               keys_.begin();
+    } else if (cur_ >= n || k < keys_[cur_]) {
+      cur_ = std::lower_bound(keys_.begin(), keys_.end(), k) - keys_.begin();
+    }
+    return cur_ < n && keys_[cur_] == k ? rows_[cur_] : -1;
+  }
+
+ private:
+  std::vector<Key> keys_;
+  std::vector<int64_t> rows_;
+  int64_t cur_ = 0;
+};
+
+const char kGtHeader[] =
+    "##FORMAT=<ID=GT,Number=1,Type=String,Description=\"Genotype\">\n";
+const char kGqHeader[] =
+    "##FORMAT=<ID=GQ,Number=1,Type=Integer,"
+    "Description=\"Genotype Quality\">\n";
+
+}  // namespace
+
+extern "C" {
+
+// VCF rewrite (io/vcf_writer.py): the input VCF's bytes in, the output's
+// bytes out, in one pass, equal byte for byte to the Python loop there
+// (the reference's rewrite, src/qv.cc:1628-1747) for every input it
+// accepts. The calls come as a table: row r is (name id chrom[r], local
+// position pos[r]) with genotype character gchar[r] and GQ gq[r]; a later
+// row replaces an earlier one of the same key, as in the loop's dict.
+// `names` holds the chromosome names back to back (name i is
+// names[name_off[i] .. name_off[i + 1])); chrom[] indexes the first of
+// equal names. A row matches a data line whose CHROM ("chr" put before it
+// unless it starts with 'c') + '$' + POS is the loop's key
+// name + '$' + decimal local position; the split is at the key's last '$',
+// since a decimal has none. Lines end at "\n", "\r\n" or a lone '\r' (the
+// loop reads in text mode). Returns the bytes written; -1 where the pass
+// declines (a byte that is not ASCII, or a shape on which the loop
+// raises: the loop then runs and raises as it did); -2 where `cap` is too
+// small (len + kLineSlack a line always suffices).
+int64_t vgt_vcf_rewrite(const char* in, int64_t n_in, const char* names,
+                        const int64_t* name_off, int64_t n_names,
+                        const int32_t* chrom, const int64_t* pos,
+                        const uint8_t* gchar, const int32_t* gq,
+                        int64_t n_rows, char* out, int64_t cap) {
+  std::unordered_map<std::string, int32_t> name_id;
+  for (int64_t i = 0; i < n_names; ++i)
+    name_id.emplace(std::string(names + name_off[i],
+                                name_off[i + 1] - name_off[i]),
+                    (int32_t)i);
+  CallMap calls(chrom, pos, n_rows);
+
+  bool has_gt = false, has_gq = false, head_has_gt_col = true;
+  int64_t gt_index = -1, gq_index = -1;
+  std::string key, last_key;
+  int32_t last_id = -1;   // name id of last_key, -1 for none
+  std::vector<Span> cols, fmt, info;
+  char gq_buf[16];
+  const char* p = in;
+  const char* const end = in + n_in;
+  char* o = out;
+  char* const o_end = out + cap;
+  auto put = [&o](const char* s, int64_t n) {
+    std::memcpy(o, s, n);
+    o += n;
+  };
+  auto join = [&](const std::vector<Span>& f) {
+    for (size_t i = 0; i < f.size(); ++i) {
+      if (i) *o++ = ':';
+      put(f[i].p, f[i].n);
+    }
+  };
+
+  while (p < end) {
+    bool high = false;
+    const char* q = line_end(p, end, &high);
+    if (high) return -1;
+    const char* line = p;
+    const int64_t len = q - p;
+    p = q == end ? end
+                 : q + (*q == '\r' && q + 1 < end && q[1] == '\n' ? 2 : 1);
+    if (len == 0) continue;
+    if (o_end - o < len + kLineSlack) return -2;
+
+    if (line[0] == '#' && len > 1 && line[1] == '#') {
+      put(line, len);
+      *o++ = '\n';
+      if (contains(line, len, "ID=GT,"))
+        has_gt = true;
+      else if (contains(line, len, "ID=GQ,"))
+        has_gq = true;
+      continue;
+    }
+    if (line[0] == '#') {
+      if (!has_gt) { put(kGtHeader, sizeof(kGtHeader) - 1); gt_index = 0; }
+      if (!has_gq) { put(kGqHeader, sizeof(kGqHeader) - 1); gq_index = 1; }
+      put(line, len);
+      int64_t tabs = 0;
+      for (int64_t i = 0; i < len; ++i) tabs += line[i] == '\t';
+      if (tabs + 1 < 10) {
+        head_has_gt_col = false;
+        put("\tFORMAT\tDONOR", 13);
+      }
+      *o++ = '\n';
+      continue;
+    }
+
+    // a data row: its key, CHROM + '$' + POS, split at its last '$'
+    const char* line_stop = line + len;
+    const char* t1 = static_cast<const char*>(std::memchr(line, '\t', len));
+    if (!t1) return -1;
+    const char* t2 = static_cast<const char*>(
+        std::memchr(t1 + 1, '\t', line_stop - t1 - 1));
+    const Span col1 = {t1 + 1, (t2 ? t2 : line_stop) - t1 - 1};
+    key.clear();
+    if (line[0] != 'c') key.append("chr");
+    key.append(line, t1 - line);
+    Span digits = col1;
+    for (int64_t i = col1.n - 1; i >= 0; --i)
+      if (col1.p[i] == '$') {
+        key.push_back('$');
+        key.append(col1.p, i);
+        digits = {col1.p + i + 1, col1.n - i - 1};
+        break;
+      }
+    // the local position as Python's str() writes it: 1 to 18 digits,
+    // no leading zero (genome offsets lie far below 10^18)
+    if (digits.n < 1 || digits.n > 18 || (digits.n > 1 && digits.p[0] == '0'))
+      continue;
+    int64_t local = 0;
+    bool bad = false;
+    for (int64_t i = 0; i < digits.n; ++i) {
+      unsigned d = (unsigned)(digits.p[i] - '0');
+      bad |= d > 9;
+      local = local * 10 + d;
+    }
+    if (bad) continue;
+    if (key != last_key) {
+      auto it = name_id.find(key);
+      last_id = it == name_id.end() ? -1 : it->second;
+      last_key = key;
+    }
+    if (last_id < 0) continue;
+    const int64_t r = calls.find({last_id, local});
+    if (r < 0) continue;  // uncalled SNPs are omitted (src/qv.cc:1674-1676)
+
+    const char* gts = gchar[r] == '1' ? "0/1" : gchar[r] == '2' ? "1/1"
+                                                                : "0/0";
+    const int gq_len = write_int(gq_buf, gq[r]);
+    split(line, len, '\t', &cols);
+    fmt.clear();
+    info.clear();
+    if (head_has_gt_col && cols.size() > 9) {
+      split(cols[8].p, cols[8].n, ':', &fmt);
+      split(cols[9].p, cols[9].n, ':', &info);
+    }
+    if (has_gt && gt_index == -1) {
+      for (size_t i = 0; i < fmt.size() && gt_index < 0; ++i)
+        if (span_eq(fmt[i], "GT", 2)) gt_index = (int64_t)i;
+      if (gt_index < 0) return -1;
+    }
+    if (has_gq && gq_index == -1) {
+      for (size_t i = 0; i < fmt.size() && gq_index < 0; ++i)
+        if (span_eq(fmt[i], "GQ", 2)) gq_index = (int64_t)i;
+      if (gq_index < 0) return -1;
+    }
+    if (has_gt) {
+      if (gt_index >= (int64_t)info.size()) return -1;
+      info[gt_index] = {gts, 3};
+    } else {
+      fmt.push_back({"GT", 2});
+      info.push_back({gts, 3});
+    }
+    if (has_gq) {
+      if (gq_index >= (int64_t)info.size()) return -1;
+      info[gq_index] = {gq_buf, gq_len};
+    } else {
+      fmt.push_back({"GQ", 2});
+      info.push_back({gq_buf, gq_len});
+    }
+    if (head_has_gt_col) {
+      if (cols.size() < 10) return -1;
+      put(line, cols[8].p - line);
+      join(fmt);
+      *o++ = '\t';
+      join(info);
+      const char* rest = cols[9].p + cols[9].n;
+      put(rest, line_stop - rest);
+    } else {
+      put(line, len);
+      *o++ = '\t';
+      join(fmt);
+      *o++ = '\t';
+      join(info);
+    }
+    *o++ = '\n';
+  }
+  return o - out;
 }
 
 }  // extern "C"

@@ -128,10 +128,13 @@ class Meter:
         d.update(self.extra)
         return d
 
-    def emit(self, stages: Optional[Dict[str, float]] = None) -> dict:
-        """Append the snapshot as one json line; ``stages``: seconds by
-        stage (a ``StageTimer``'s totals), kept under ``stages``."""
+    def emit(self, stages: Optional[Dict[str, float]] = None,
+             **counters) -> dict:
+        """Append the snapshot and ``counters`` as one json line;
+        ``stages``: seconds by stage (a ``StageTimer``'s totals), kept
+        under ``stages``."""
         snap = self.snapshot()
+        snap.update(counters)
         if stages is not None:
             snap["stages"] = dict(stages)
         if self.path:
